@@ -1,0 +1,317 @@
+"""The streaming executor: chunks in, merged buffers out (paper Fig. 3).
+
+  chunk -> PrePEs (spec.pre) -> data routing (mapper.redirect) ->
+  PriPEs/SecPEs (pe_update on the partitioned buffers) -> merger
+
+The PyTorch counterpart of ``repro/core/executor.py``.  ``lax.scan``
+becomes a Python loop over chunks.  The runtime profiler, scheduler and the
+PROFILE -> RUN -> re-schedule mode machine stay branch-free: every decision
+is a ``torch.where`` on device tensors, so a chunk step never waits for the
+device.
+
+Two shapes share one chunk step (``_build_chunk_step``):
+
+  * ``make_executor`` -- one-shot: init -> chunks -> merge;
+  * ``make_resumable_executor`` -- the caller owns the ``ExecState`` between
+    calls (``step``, ``run_chunks``, ``merge_state``).
+
+Both take an optional per-tuple validity mask beside the chunks: a masked
+tuple goes to the sentinel PriPE M and effective PE M+X, which every
+histogram and buffer update drops, so a padded chunk is bit-identical to a
+shorter one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import mapper, merger, perfmodel, profiler, scheduler
+from repro_torch.core.types import (PROFILE_MODE, RUN_MODE, DittoSpec,
+                                    ExecStats, RoutePlan, resolve_device)
+from repro_torch.kernels import dispatch
+
+
+def default_pe_update(buffers, eff, idx, value, combine: str):
+    """PriPE/SecPE buffer update through ``dispatch.pe_buffer_update``: the
+    plain version on the CPU, the ``route_accumulate`` kernel on CUDA.
+    Folds into ``buffers`` in place."""
+    return dispatch.pe_buffer_update(buffers, eff, idx, value, combine)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecState:
+    buffers: torch.Tensor
+    plan: RoutePlan
+    rr_base: torch.Tensor
+    mode: torch.Tensor
+    profile_hist: torch.Tensor
+    chunks_in_mode: torch.Tensor
+    monitor: profiler.MonitorState
+    reschedules: torch.Tensor
+
+    def clone(self) -> "ExecState":
+        """A copy that shares no tensor with this state."""
+        return _tree_map(torch.clone, self)
+
+
+def _tree_map(fn, *objs):
+    """Apply ``fn`` leaf-wise over dataclasses of tensors of one type."""
+    first = objs[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: _tree_map(fn, *(getattr(o, f.name) for o in objs))
+            for f in dataclasses.fields(first)})
+    return fn(*objs)
+
+
+def _pick(cond: torch.Tensor, new, old):
+    """Field-wise ``torch.where(cond, new, old)``."""
+    return _tree_map(lambda a, b: torch.where(cond, a, b), new, old)
+
+
+def _scalar(value, dtype, device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def init_state(spec: DittoSpec, num_pri: int, num_sec: int,
+               device="cuda") -> ExecState:
+    device = resolve_device(device)
+    return ExecState(
+        buffers=spec.init_buffer(num_pri + num_sec, device),
+        plan=mapper.init_plan(num_pri, num_sec, device),
+        rr_base=torch.zeros((num_pri,), dtype=torch.int32, device=device),
+        mode=_scalar(PROFILE_MODE, torch.int32, device),
+        profile_hist=torch.zeros((num_pri,), dtype=torch.int32, device=device),
+        chunks_in_mode=_scalar(0, torch.int32, device),
+        monitor=profiler.MonitorState.fresh(device),
+        reschedules=_scalar(0, torch.int32, device))
+
+
+def with_plan(state: ExecState, plan: RoutePlan) -> ExecState:
+    """Seed a state with a pre-made plan and start it in RUN mode."""
+    return dataclasses.replace(
+        state, plan=plan,
+        mode=_scalar(RUN_MODE, torch.int32, state.mode.device))
+
+
+def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
+                      chunk_size: int, *, profile_chunks: int,
+                      threshold: float, mem_width_tuples: int,
+                      static_plan: bool, pe_update) -> Callable:
+    """The per-chunk body shared by every executor shape:
+    ``(state, chunk, mask) -> (state, stats)``.  ``mask`` is None (dense
+    chunk) or bool[chunk_size].  The step folds into ``state.buffers`` in
+    place; every other field of the returned state is a new tensor."""
+    num_pe = num_pri + num_sec
+
+    def chunk_step(state: ExecState, chunk: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None):
+        # `live` gates every carry update that counts chunks: a fully
+        # masked chunk leaves the window, monitor and mode as they were.
+        live = None if mask is None else mask.any()
+        dst, idx, value = spec.pre(chunk, num_pri)
+        if mask is not None:
+            dst = torch.where(mask, dst, num_pri)
+        workload = profiler.workload_hist(dst, num_pri)
+
+        # data routing: designated PE -> effective PE (mapper, Fig. 4c)
+        rank, rr_base = mapper.occurrence_rank(dst, num_pri, state.rr_base)
+        eff = mapper.redirect(state.plan, dst, rank)
+        if mask is not None:
+            eff = torch.where(mask, eff, num_pe)
+
+        buffers = pe_update(state.buffers, eff, idx, value)
+
+        # port-limited cycle model for the monitor and the stats
+        max_load = profiler.workload_hist(eff, num_pe).max()
+        cycles = perfmodel.chunk_cycles(chunk_size, max_load,
+                                        mem_width_tuples, spec.ii_pe)
+
+        if static_plan:
+            stats = ExecStats(max_load=max_load, modeled_cycles=cycles,
+                              mode=torch.full_like(state.mode, RUN_MODE),
+                              rescheduled=torch.zeros_like(state.mode, dtype=torch.bool),
+                              workload=workload)
+            return dataclasses.replace(state, buffers=buffers, rr_base=rr_base), stats
+
+        # runtime profiler: PROFILE mode accumulates the workload hist
+        in_profile = state.mode == PROFILE_MODE
+        profile_hist = torch.where(in_profile, state.profile_hist + workload,
+                                   state.profile_hist)
+        chunks_in_mode = state.chunks_in_mode + \
+            (1 if live is None else live.to(torch.int32))
+
+        # PROFILE -> RUN: generate and apply the SecPE plan (Fig. 5)
+        plan_ready = in_profile & (chunks_in_mode >= profile_chunks)
+        if live is not None:
+            plan_ready = plan_ready & live
+        assignment = scheduler.schedule_secpes(profile_hist, num_sec)
+        new_plan = mapper.apply_schedule(state.plan, assignment)
+        post_load = scheduler.post_plan_max_load(
+            profile_hist.to(torch.float32) / chunks_in_mode.clamp(min=1),
+            assignment)
+        ref_cycles = perfmodel.chunk_cycles(chunk_size, post_load,
+                                            mem_width_tuples, spec.ii_pe)
+
+        plan = _pick(plan_ready, new_plan, state.plan)
+        monitor = _pick(plan_ready,
+                        profiler.MonitorState(ref_cycles=ref_cycles,
+                                              ema_cycles=torch.zeros_like(ref_cycles)),
+                        state.monitor)
+        mode = torch.where(plan_ready, RUN_MODE, state.mode)
+        chunks_in_mode = torch.where(plan_ready, 0, chunks_in_mode)
+
+        # RUN mode: throughput monitoring -> re-schedule trigger (§IV-B)
+        steady = (mode == RUN_MODE) & ~plan_ready
+        if live is not None:
+            steady = steady & live
+        monitor = _pick(steady, profiler.monitor_update(monitor, cycles), monitor)
+        fire = steady & profiler.should_reschedule(monitor, threshold)
+
+        if threshold > 0.0:   # otherwise `fire` is always False
+            merged = merger.merge_buffers(buffers, plan.assignment, num_pri,
+                                          spec.combine)
+            resched = merger.reset_sec_buffers(buffers, num_pri, spec.combine)
+            resched[:num_pri] = merged
+            buffers = torch.where(fire, resched, buffers)
+        plan = _pick(fire, mapper.init_plan(num_pri, num_sec, mode.device), plan)
+        mode = torch.where(fire, PROFILE_MODE, mode)
+        profile_hist = torch.where(fire, 0, profile_hist)
+        chunks_in_mode = torch.where(fire, 0, chunks_in_mode)
+        monitor = _pick(fire, profiler.MonitorState.fresh(mode.device), monitor)
+
+        stats = ExecStats(max_load=max_load, modeled_cycles=cycles,
+                          mode=state.mode, rescheduled=fire, workload=workload)
+        new_state = ExecState(buffers=buffers, plan=plan, rr_base=rr_base,
+                              mode=mode, profile_hist=profile_hist,
+                              chunks_in_mode=chunks_in_mode, monitor=monitor,
+                              reschedules=state.reschedules + fire.to(torch.int32))
+        return new_state, stats
+
+    return chunk_step
+
+
+def _stack_stats(stats: list[ExecStats], like: ExecState,
+                 num_pri: int) -> ExecStats:
+    if not stats:
+        device = like.mode.device
+        empty = partial(torch.zeros, device=device)
+        return ExecStats(max_load=empty((0,), dtype=torch.int32),
+                         modeled_cycles=empty((0,), dtype=torch.float32),
+                         mode=empty((0,), dtype=torch.int32),
+                         rescheduled=empty((0,), dtype=torch.bool),
+                         workload=empty((0, num_pri), dtype=torch.int32))
+    return ExecStats(**{f.name: torch.stack([getattr(s, f.name) for s in stats])
+                        for f in dataclasses.fields(ExecStats)})
+
+
+@dataclasses.dataclass(frozen=True)
+class ResumableExecutor:
+    """A streaming executor whose state the caller owns.
+
+    ``step(state, chunk, mask=None)`` is the raw chunk body; it folds into
+    ``state.buffers`` in place, so the caller must not reuse that state.
+    ``run_chunks(state, chunks, mask=None)`` clones the state once and then
+    steps over the leading chunk axis, leaving the caller's state as it
+    was.  ``merge_state`` is a non-destructive snapshot."""
+
+    spec: DittoSpec
+    num_pri: int
+    num_sec: int
+    chunk_size: int
+    device: torch.device
+    step: Callable = dataclasses.field(repr=False)
+
+    def init_state(self) -> ExecState:
+        return init_state(self.spec, self.num_pri, self.num_sec, self.device)
+
+    def run_chunks(self, state: ExecState, chunks, mask=None):
+        """-> (state, ExecStats stacked over the chunk axis)."""
+        chunks = torch.as_tensor(chunks, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        if chunks.dim() < 2 or chunks.shape[1] != self.chunk_size:
+            raise ValueError(f"chunks must be [num_chunks, {self.chunk_size}, ...], "
+                             f"got {tuple(chunks.shape)}")
+        state = state.clone()
+        stats = []
+        for k in range(chunks.shape[0]):
+            state, s = self.step(state, chunks[k],
+                                 None if mask is None else mask[k])
+            stats.append(s)
+        return state, _stack_stats(stats, state, self.num_pri)
+
+    def merge_state(self, state: ExecState) -> torch.Tensor:
+        """Merged [M, *local] buffers; the SecPE shadows stay intact."""
+        return merger.merge_buffers(state.buffers, state.plan.assignment,
+                                    self.num_pri, self.spec.combine)
+
+
+def make_resumable_executor(spec: DittoSpec, num_pri: int, num_sec: int,
+                            chunk_size: int, *, profile_chunks: int = 1,
+                            threshold: float = 0.0, mem_width_tuples: int = 8,
+                            static_plan: bool = False,
+                            device="cuda") -> ResumableExecutor:
+    """The suspend/resume shape of ``make_executor`` (same knobs)::
+
+        res = make_resumable_executor(spec, 16, 4, 4096)
+        state = res.init_state()                    # or with_plan(state, p)
+        state, stats = res.run_chunks(state, chunks_a)
+        snapshot = res.merge_state(state)
+        state, stats = res.run_chunks(state, chunks_b, mask)
+    """
+    device = resolve_device(device)
+    pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
+    step = _build_chunk_step(
+        spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
+        threshold=threshold, mem_width_tuples=mem_width_tuples,
+        static_plan=static_plan, pe_update=pe_update)
+    return ResumableExecutor(spec=spec, num_pri=num_pri, num_sec=num_sec,
+                             chunk_size=chunk_size, device=device, step=step)
+
+
+def make_executor(spec: DittoSpec, num_pri: int, num_sec: int,
+                  chunk_size: int, *, profile_chunks: int = 1,
+                  threshold: float = 0.0, mem_width_tuples: int = 8,
+                  static_plan: bool = False,
+                  device="cuda") -> Callable[..., tuple[torch.Tensor, ExecStats]]:
+    """Build the streaming executor.
+
+    spec: the application; num_pri/num_sec: M PriPEs and X SecPEs;
+    chunk_size: tuples per chunk (the profiling window granularity);
+    profile_chunks: chunks of profiling before a plan is generated;
+    threshold: throughput-drop fraction that triggers a re-schedule (0.0
+    disables it); mem_width_tuples: W of Eq. 1; static_plan: skip runtime
+    profiling (the caller passes a plan); device: where the state lives and
+    the kernels run ("cuda" raises without a CUDA device).
+
+    Returns fn(tuples, plan=None, mask=None) -> (merged buffers, ExecStats);
+    ``tuples`` is [num_chunks, chunk_size, ...], ``mask`` an optional
+    bool[num_chunks, chunk_size] validity mask.
+    """
+    res = make_resumable_executor(
+        spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
+        threshold=threshold, mem_width_tuples=mem_width_tuples,
+        static_plan=static_plan, device=device)
+
+    def run(tuples, plan: Optional[RoutePlan] = None, mask=None):
+        state = res.init_state()
+        if plan is not None:
+            state = with_plan(state, plan)
+        state, stats = res.run_chunks(state, tuples, mask)
+        return res.merge_state(state), stats
+
+    return run
+
+
+def make_static_plan(num_pri: int, num_sec: int, workload,
+                     device="cuda") -> RoutePlan:
+    """Offline path: a plan from a sampled workload distribution."""
+    device = resolve_device(device)
+    assignment = scheduler.schedule_secpes(torch.as_tensor(workload, device=device),
+                                           num_sec)
+    return mapper.apply_schedule(mapper.init_plan(num_pri, num_sec, device),
+                                 assignment)

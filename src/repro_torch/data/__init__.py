@@ -1,0 +1,6 @@
+"""Zipf tuple streams and the chunked streaming pipeline (numpy only)."""
+from repro_torch.data.pipeline import TupleStream, chunk_stream, pad_tail_chunk
+from repro_torch.data.zipf import evolving_zipf_tuples, zipf_keys, zipf_tuples
+
+__all__ = ["zipf_keys", "zipf_tuples", "evolving_zipf_tuples",
+           "chunk_stream", "pad_tail_chunk", "TupleStream"]

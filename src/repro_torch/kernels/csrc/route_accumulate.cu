@@ -1,0 +1,100 @@
+// PE buffer update for Hopper (sm_90a): fold each tuple's value into the
+// carried PriPE/SecPE buffers at cell (eff[t], idx[t]), with add or max.
+//
+// Replaces src/repro/kernels/route_accumulate.py::route_accumulate together
+// with the flattening/fold wrapper around it in
+// src/repro/kernels/dispatch.py::pe_buffer_update.  The TPU kernel turns the
+// scatter into a one-hot MXU contraction because VMEM has no fast scatter;
+// Hopper has L2 atomics, so this kernel scatters directly.
+//
+// Bound: bytes.  Each tuple is read once (eff, idx, value: 12 B) and each
+// cell the chunk touches is read and written once.  At the executor's chunk
+// of 4096 tuples that is ~50 KB, far below what one launch costs, so on the
+// main path the kernel is launch-bound.  Under heavy skew (Zipf alpha=3 sends
+// most tuples to one cell) atomics on one address serialize in L2.  A
+// variant that privatized the bins in shared memory took longer on the card
+// at both main-path shapes (HLL [30, 256] max, HISTO [30, 32] add), because
+// every block fills and folds back all bins, so there is one path.
+//
+// Design: one thread per tuple in a grid-stride loop, one global atomic per
+// valid tuple.  Tuples with eff outside [0, num_pe) or idx outside
+// [0, local) are dropped (padding -1 and the executor's masked sentinel
+// eff = num_pe).  The fold goes into the carried buffer, so `max` is exact
+// for values of any sign.  Integer results are bit-exact; float `add`
+// depends on the atomic order.  Float `max` is a CAS loop.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 4;
+
+__device__ __forceinline__ void atomic_max(int* addr, int v) { atomicMax(addr, v); }
+
+__device__ __forceinline__ void atomic_max(float* addr, float v) {
+  int* bits = reinterpret_cast<int*>(addr);
+  int old = *bits;
+  while (__int_as_float(old) < v) {
+    const int assumed = old;
+    old = atomicCAS(bits, assumed, __float_as_int(v));
+    if (old == assumed) break;
+  }
+}
+
+template <typename T, bool kMax>
+__device__ __forceinline__ void fold(T* addr, T v) {
+  if constexpr (kMax) {
+    atomic_max(addr, v);
+  } else {
+    atomicAdd(addr, v);
+  }
+}
+
+template <typename T, bool kMax>
+__global__ void route_accumulate_kernel(T* __restrict__ buf,
+                                        const int* __restrict__ eff,
+                                        const int* __restrict__ idx,
+                                        const T* __restrict__ val, int n,
+                                        int num_pe, int local) {
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += gridDim.x * blockDim.x) {
+    const int e = eff[t];
+    const int i = idx[t];
+    if (e >= 0 && e < num_pe && i >= 0 && i < local)
+      fold<T, kMax>(&buf[static_cast<long long>(e) * local + i], val[t]);
+  }
+}
+
+template <typename T, bool kMax>
+cudaError_t launch(void* buf, const void* eff, const void* idx,
+                   const void* val, int n, int num_pe, int local,
+                   cudaStream_t stream) {
+  int blocks = (n + kThreads - 1) / kThreads;
+  blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
+  route_accumulate_kernel<T, kMax><<<blocks, kThreads, 0, stream>>>(
+      static_cast<T*>(buf), static_cast<const int*>(eff),
+      static_cast<const int*>(idx), static_cast<const T*>(val), n, num_pe,
+      local);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// buf: [num_pe, local] int32 (is_float=0) or float32 (is_float=1), updated in
+// place.  eff, idx: [n] int32.  val: [n] of buf's type.  Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int route_accumulate(void* buf, const void* eff, const void* idx,
+                                const void* val, int n, int num_pe, int local,
+                                int is_max, int is_float, void* stream) {
+  if (n <= 0 || num_pe <= 0 || local <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_float) {
+    err = is_max ? launch<float, true>(buf, eff, idx, val, n, num_pe, local, s)
+                 : launch<float, false>(buf, eff, idx, val, n, num_pe, local, s);
+  } else {
+    err = is_max ? launch<int, true>(buf, eff, idx, val, n, num_pe, local, s)
+                 : launch<int, false>(buf, eff, idx, val, n, num_pe, local, s);
+  }
+  return static_cast<int>(err);
+}

@@ -1,0 +1,140 @@
+"""Parity of the port's kernel layer (``repro_torch.kernels``) with the JAX
+package's kernels.
+
+On the CPU the port's dispatch takes the plain PyTorch versions; they are
+held against ``repro.kernels.dispatch`` with ``backend="jnp"`` on the
+shapes of tests/test_kernels.py, and against the Pallas kernels in
+interpret mode on one tiny non-negative case.  Integer results must match
+bit for bit; float sums use allclose(rtol=1e-6) because index_add_ and
+XLA's scatter add in different orders.  The CUDA kernels themselves are
+held against these plain versions in tests/test_torch_cuda.py, on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dispatch as jdispatch
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.cms_update import cms_update as cms_cuda
+from repro_torch.kernels.route_accumulate import route_accumulate as route_cuda
+
+ROUTE_SHAPES = [(64, 96), (1000, 512), (4096, 2000), (257, 128), (8, 4096)]
+CMS_SHAPES = [(512, 8, 4, 256), (100, 4, 2, 128), (2048, 16, 3, 512), (7, 2, 1, 128)]
+DTYPES = {"int32": torch.int32, "float32": torch.float32}
+
+
+def _assert_match(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if np.issubdtype(got.dtype, np.integer):
+        np.testing.assert_array_equal(got, want)
+    else:   # summation order differs between index_add_ and XLA's scatter
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _values(rng, n, dtype, signed=True):
+    if dtype == "int32":
+        lo = -100 if signed else 0
+        return rng.integers(lo, 100, n).astype(np.int32)
+    v = rng.standard_normal(n) if signed else rng.random(n)
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("combine", ["add", "max"])
+@pytest.mark.parametrize("t,bins", ROUTE_SHAPES)
+def test_scatter_accumulate_vs_jnp(t, bins, combine, dtype):
+    rng = np.random.default_rng(t * 7919 + bins)
+    idx = rng.integers(-1, bins + 2, t).astype(np.int32)   # -1 and >= bins dropped
+    val = _values(rng, t, dtype)
+    got = dispatch.scatter_accumulate(torch.from_numpy(idx), torch.from_numpy(val),
+                                      bins, combine)
+    want = jdispatch.scatter_accumulate(jnp.asarray(idx), jnp.asarray(val), bins,
+                                        combine, backend="jnp")
+    _assert_match(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("combine", ["add", "max"])
+def test_pe_buffer_update_vs_jnp(combine, dtype):
+    """Carried buffers with negative values, -1 padding and the masked
+    sentinel eff = num_pe: the fold into the carried state is exact."""
+    rng = np.random.default_rng(5)
+    num_pe, local, t = 7, 33, 1500
+    buffers = _values(rng, num_pe * local, dtype).reshape(num_pe, local)
+    eff = rng.integers(-1, num_pe + 1, t).astype(np.int32)
+    idx = rng.integers(-1, local + 1, t).astype(np.int32)
+    val = _values(rng, t, dtype)
+    got = dispatch.pe_buffer_update(torch.from_numpy(buffers.copy()),
+                                    torch.from_numpy(eff), torch.from_numpy(idx),
+                                    torch.from_numpy(val), combine)
+    want = jdispatch.pe_buffer_update(jnp.asarray(buffers), jnp.asarray(eff),
+                                      jnp.asarray(idx), jnp.asarray(val),
+                                      combine, backend="jnp")
+    _assert_match(got.numpy(), want)
+
+
+def test_pe_buffer_update_folds_in_place():
+    buffers = torch.zeros((2, 4), dtype=torch.int32)
+    out = dispatch.pe_buffer_update(buffers, torch.tensor([1, 1, 2]),
+                                    torch.tensor([3, 3, 0]),
+                                    torch.tensor([5, 6, 7]), "add")
+    assert out is buffers
+    assert buffers.tolist() == [[0, 0, 0, 0], [0, 0, 0, 11]]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,pe,d,w", CMS_SHAPES)
+def test_cms_update_vs_jnp(t, pe, d, w, dtype):
+    rng = np.random.default_rng(t * 31 + pe * 7 + d)
+    eff = rng.integers(-1, pe + 1, t).astype(np.int32)   # -1 and the sentinel pe
+    cols = rng.integers(0, w, (t, d)).astype(np.int32)
+    val = _values(rng, t, dtype, signed=False)
+    sketch = torch.zeros((pe, d, w), dtype=DTYPES[dtype])
+    got = dispatch.cms_update(sketch, torch.from_numpy(eff), torch.from_numpy(cols),
+                              torch.from_numpy(val))
+    want = jdispatch.cms_update(jnp.asarray(eff), jnp.asarray(cols),
+                                jnp.asarray(val), pe, d, w, backend="jnp")
+    _assert_match(got.numpy(), want)
+
+
+def test_plain_versions_vs_pallas_interpret():
+    """One tiny non-negative case against the Pallas kernel bodies (whose
+    ``max`` is exact only on non-negative data)."""
+    rng = np.random.default_rng(11)
+    idx = rng.integers(-1, 96, 64).astype(np.int32)
+    val = rng.integers(0, 50, 64).astype(np.int32)
+    for combine in ("add", "max"):
+        got = dispatch.scatter_accumulate(torch.from_numpy(idx),
+                                          torch.from_numpy(val), 96, combine)
+        want = jdispatch.scatter_accumulate(jnp.asarray(idx), jnp.asarray(val), 96,
+                                            combine, backend="interpret")
+        _assert_match(got.numpy(), want)
+    eff = rng.integers(0, 3, 7).astype(np.int32)     # includes the sentinel 2
+    cols = rng.integers(0, 128, (7, 1)).astype(np.int32)
+    one = np.ones(7, np.int32)
+    got = dispatch.cms_update(torch.zeros((2, 1, 128), dtype=torch.int32),
+                              torch.from_numpy(eff), torch.from_numpy(cols),
+                              torch.from_numpy(one))
+    want = jdispatch.cms_update(jnp.asarray(eff), jnp.asarray(cols),
+                                jnp.asarray(one), 2, 1, 128, backend="interpret")
+    _assert_match(got.numpy(), want)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never take a CPU tensor: the dispatch layer is
+    what picks the plain version there."""
+    buf = torch.zeros((2, 4), dtype=torch.int32)
+    i = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        route_cuda(buf, i, i, i, "add")
+    with pytest.raises(ValueError, match="CUDA"):
+        cms_cuda(torch.zeros((2, 1, 4), dtype=torch.int32), i, i[:, None], i)
+
+
+def test_dispatch_rejects_other_devices():
+    buf = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    i = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel realization"):
+        dispatch.pe_buffer_update(buf, i, i, i, "add")
