@@ -27,11 +27,29 @@ Phases (any failure exits non-zero before the result lines):
   6. profile 64 chunks of every configuration (torch.profiler): the card's
      time and the host's aten ops per chunk against the wall time per
      chunk; time the app's PrePE and the greedy scheduler alone.
+Then the MoE language model (moonshot-v1-16b-a3b at full width):
+  A. hold onehot_dispatch, onehot_combine and flash_attention against their
+     plain versions on CUDA tensors at the prefill and decode shapes:
+     float32 and bfloat16, dropped tuples (eff = -1, eff = P, slot >= C),
+     duplicate cells, gate given or None; flash at S = 1024 and 1000, H = KV
+     and GQA (KV = 4), causal with and without a window of 256;
+  B. drive the LM path with 8 of its 48 layers and seeded random weights:
+     prefill_fn on [4, 1024] tokens (finite logits; each kernel launches
+     once per layer), then a DecodeEngine with repro.launch.serve's defaults
+     (8 requests, prompts of 4-16 tokens, 16 new tokens, 4 slots, max_len
+     128): every request returns 16 tokens, and dispatch and combine launch
+     once per layer per decode_fn call;
+  C. the card against the CPU at full width with 2 layers in float32 (TF32
+     off): prefill logits within 1e-3 and identical greedy tokens of a
+     2-request DecodeEngine, on the same weights;
+  D. time each new kernel, its plain version and one library call on the
+     first layer's inputs of a prefill run, beside its bound.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,7 +66,11 @@ RAGGED_EXTRA = 1000
 PARITY_CHUNKS = 256
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 SEED = 3
+LM_LAYERS = 8                  # of 48: the float32 weights of 48 do not fit 80 GB
+PREFILL_SHAPE = (4, 1024)
+DECODE_SLOTS, DECODE_MAX_LEN = 4, 128
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -66,9 +88,10 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, calls: int = 200) -> float:
-    """Mean card time of one launch of the kernel whose name holds
-    ``kernel``, from torch.profiler's kernel rows over ``calls`` calls.
+def device_ms(fn, kernel, calls: int = 200, per_call: int = 1) -> float:
+    """Mean card time of one call of ``fn``, from torch.profiler's rows of
+    the kernels whose names hold ``kernel`` (a string, or a tuple of
+    strings; ``per_call`` rows each call) over ``calls`` calls.
 
     The profiler's activity trace can miss a launch at the edge of its
     window (199 of 200 were seen on an H100), so the mean is taken over the
@@ -82,9 +105,10 @@ def device_ms(fn, kernel: str, calls: int = 200) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    launched = sum(e.count for e in rows)
+            if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+    launched = sum(e.count for e in rows) / per_call
     assert calls // 2 <= launched <= calls, \
         f"profiler saw {launched} launches of {kernel} in {calls} calls"
     return 1e-3 * sum(e.self_device_time_total for e in rows) / launched
@@ -101,11 +125,13 @@ def host_ms(fn, calls: int = 64) -> float:
     return 1e3 * (time.perf_counter() - t0) / calls
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time of a kernel: the larger of its bytes over the HBM rate
-    and its operations over the float32 CUDA-core rate (the data sheet lists
-    no int32 rate; int32 adds issue at the same rate)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    and its operations over the peak rate of their type (default the
+    float32 CUDA-core rate: the data sheet lists no int32 rate; int32 adds
+    issue at the same rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -194,6 +220,357 @@ def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
                                          for e in top}}
 
 
+LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
+
+
+def lm_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
+    return {"onehot_dispatch": onehot_dispatch.launches,
+            "onehot_combine": onehot_combine.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.cms_update import cms_update
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
+    from repro_torch.kernels.route_accumulate import route_accumulate
+    for kernel in (route_accumulate, cms_update, onehot_dispatch, onehot_combine,
+                   flash_attention):
+        kernel.launches = 0
+
+
+def check_lm_kernels(dev) -> dict:
+    """Phase A: the three LM kernels against their plain versions on the
+    same CUDA tensors.  Pack/unpack must be bit-exact on unique cells (one
+    add onto zero; the gate product rounds once in both).  Where duplicate
+    cells sum, the partial sums round in another order, so the tolerance
+    (1e-5 float32, 2e-2 bfloat16) is taken of the largest sum of |x| in a
+    cell.  Flash: rtol = atol = 1e-5 (float32) or 2e-2 (bfloat16), as in
+    tests/test_kernels.py."""
+    from repro_torch.kernels import dispatch, ops, ref
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = dict.fromkeys(LM_KERNELS, 0.0)
+    floats = ((torch.float32, 1e-5), (torch.bfloat16, 2e-2))
+
+    def compare(name, got, want, tol, scale=1.0):
+        torch.cuda.synchronize()
+        err[name] = max(err[name], float((got.double() - want.double()).abs().max()))
+        if tol:
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol * scale)
+        else:
+            assert torch.equal(got, want), f"{name}: max |err| {err[name]}"
+
+    pe, d = 72, 2048                 # 64 experts + X = 8 slots, d_model
+    for g, t, cap in ((8, 3072, 60), (1, 24, 4)):       # prefill, decode
+        eff = torch.from_numpy(rng.integers(0, pe, (g, t)).astype(np.int32)).to(dev)
+        drop = torch.from_numpy(rng.random((g, t))).to(dev)
+        for unique in (True, False):
+            slot = (ops.occurrence_rank(eff, pe) if unique else torch.from_numpy(
+                rng.integers(0, cap, (g, t)).astype(np.int32)).to(dev))
+            e = torch.where(drop < 0.02, -1, torch.where(drop < 0.04, pe, eff))
+            s = torch.where((drop >= 0.04) & (drop < 0.06), cap + 2, slot)
+            e, s = e.to(torch.int32), s.to(torch.int32)
+            for dtype, tol in floats:
+                x = torch.randn((g, t, d), generator=gen, device=dev).to(dtype)
+                scale = float(ref.onehot_dispatch(e, s, x.float().abs(), pe, cap).max())
+                compare("onehot_dispatch", dispatch.onehot_dispatch(e, s, x, pe, cap),
+                        ref.onehot_dispatch(e, s, x, pe, cap), 0 if unique else tol,
+                        scale)
+                packed = torch.randn((g, pe, cap, d), generator=gen, device=dev).to(dtype)
+                gate = torch.rand((g, t), generator=gen, device=dev).to(dtype)
+                for gt in (gate, None):
+                    compare("onehot_combine", dispatch.onehot_combine(e, s, packed, gt),
+                            ref.onehot_combine(e, s, packed, gt), 0)
+    b, h, dh = 4, 16, 128
+    for sl in (1024, 1000):
+        for kvh in (16, 4):
+            for window in (0, 256):
+                for dtype, tol in floats:
+                    q = torch.randn((b, sl, h, dh), generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn((b, sl, kvh, dh), generator=gen, device=dev)
+                            .to(dtype) for _ in range(2))
+                    compare("flash_attention",
+                            dispatch.flash_attention(q, k, v, causal=True, window=window),
+                            ref.flash_attention(q, k, v, causal=True, window=window), tol)
+    return err
+
+
+def lm_path(dev):
+    """Phase B: the MoE LM's inference entry points at full width.  Returns
+    the record, the main path's launch counts, the model and its weights."""
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.models import zoo
+    from repro_torch.serve.engine import DecodeEngine, Request
+    cfg = dataclasses.replace(CONFIG, num_layers=LM_LAYERS)
+    model = zoo.build(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(model.generator(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = [0]
+
+    def decode_fn(p, batch):
+        calls[0] += 1
+        return model.decode_fn(p, batch)
+
+    counted = dataclasses.replace(model, decode_fn=decode_fn)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, PREFILL_SHAPE), device=dev)
+    prompts = np.random.default_rng(0)     # repro.launch.serve's prompts, seed 0
+    requests = []
+    for rid in range(8):
+        plen = int(prompts.integers(4, 17))
+        requests.append(Request(rid, prompts.integers(0, cfg.vocab, size=plen)
+                                .astype(np.int32), 16))
+
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    t0 = time.perf_counter()
+    logits = counted.prefill_fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_prefill_s = time.perf_counter() - t0
+    after_prefill = lm_counts()
+    engine = DecodeEngine(counted, params, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+    for req in requests:
+        engine.submit(req)
+    t0 = time.perf_counter()
+    ticks = 0
+    while engine.queue or any(r is not None for r in engine.slot_req):
+        engine.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = lm_counts()                  # ---- to here
+    from repro_torch.kernels.cms_update import cms_update
+    from repro_torch.kernels.route_accumulate import route_accumulate
+    assert route_accumulate.launches == cms_update.launches == 0
+
+    assert logits.shape == (*PREFILL_SHAPE, cfg.vocab) and logits.dtype == cfg.cdtype
+    assert bool(torch.isfinite(logits).all()), "prefill logits are not finite"
+    assert after_prefill == dict.fromkeys(LM_KERNELS, LM_LAYERS), after_prefill
+    assert all(len(r.out) == 16 and r.done for r in requests), \
+        [len(r.out) for r in requests]
+    for name in ("onehot_dispatch", "onehot_combine"):
+        assert counts[name] == LM_LAYERS * (1 + calls[0]), (name, counts, calls)
+    assert counts["flash_attention"] == LM_LAYERS, counts
+    del logits
+    steady = [host_ms(lambda: model.prefill_fn(params, {"tokens": tokens}), calls=3)]
+    n_tok = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
+    rec = {"arch": cfg.name, "layers": LM_LAYERS, "params_init_s": init_s,
+           "prefill_tokens": list(PREFILL_SHAPE), "first_prefill_s": first_prefill_s,
+           "prefill_ms_per_forward": steady[0],
+           "prefill_tokens_per_s": n_tok / (steady[0] * 1e-3),
+           "decode_requests": len(requests), "decode_new_tokens": 16 * len(requests),
+           "prompt_tokens": int(sum(len(r.prompt) for r in requests)),
+           "decode_fn_calls": calls[0], "engine_ticks": ticks, "decode_s": decode_s,
+           "decode_ms_per_call": 1e3 * decode_s / calls[0],
+           "decode_tokens_per_s": 16 * len(requests) / decode_s,
+           "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    return rec, counts, model, params, tokens
+
+
+def profile_lm(dev, model, params, tokens) -> dict:
+    """Where a prefill forward and a decode step of the LM spend the card's
+    time: torch.profiler over one prefill_fn call and over 8 decode_fn calls
+    on 4 slots (the serve run's width), kernel rows only, against the wall
+    time under the profiler (which stretches the host side, so the busy
+    share is a lower bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import decode_tokens
+    cache = model.init_cache(params, DECODE_SLOTS, DECODE_MAX_LEN)
+    tok = tokens[0, :DECODE_SLOTS].to(torch.int32)
+    lens = torch.full((DECODE_SLOTS,), 16, dtype=torch.int32, device=dev)
+
+    def decode():
+        decode_tokens(model, params, tok, cache, lens)
+
+    def prefill():
+        model.prefill_fn(params, {"tokens": tokens})
+
+    out = {}
+    for name, fn, calls in (("prefill", prefill, 1), ("decode_step", decode, 8)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        out[name] = {
+            "calls": calls, "wall_ms_per_call_profiled": 1e3 * wall_s / calls,
+            "device_ms_per_call": 1e-3 * device_us / calls,
+            "busy_share_profiled": device_us * 1e-6 / wall_s,
+            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "host_aten_ops_per_call": sum(
+                e.count for e in events if e.device_type == DeviceType.CPU
+                and e.key.startswith("aten::")) / calls,
+            "top_kernels_ms_per_call": {e.key[:80]: 1e-3 * e.self_device_time_total / calls
+                                        for e in top}}
+    return out
+
+
+def lm_cpu_parity(dev, params8) -> dict:
+    """Phase C: full width, 2 layers, compute float32 with TF32 off; the
+    weights are the first 2 layers of phase B's (float32), copied to the
+    CPU.  Prefill logits within rtol = atol = 1e-3 (float32 sums in another
+    order over d_model 2048 and 163840 logits) and identical greedy tokens."""
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.serve.engine import DecodeEngine, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(CONFIG, num_layers=2, compute_dtype="float32")
+    first2 = lambda tree: ({k: first2(v) for k, v in tree.items()}
+                           if isinstance(tree, dict) else tree[:2])
+    gpu_params = {"embed": params8["embed"], "blocks": first2(params8["blocks"]),
+                  "final_norm": params8["final_norm"]}
+    t0 = time.perf_counter()
+    cpu_params = tree_to(gpu_params, torch.device("cpu"))
+    rng = np.random.default_rng(SEED + 1)
+    tokens = rng.integers(0, cfg.vocab, (1, 64))
+    prompts = [rng.integers(0, cfg.vocab, 4).astype(np.int32) for _ in range(2)]
+    outs = []
+    for where, params in ((dev, gpu_params), (torch.device("cpu"), cpu_params)):
+        model = zoo.build(cfg, device=where)
+        logits = model.prefill_fn(params, {"tokens": torch.as_tensor(tokens, device=where)})
+        engine = DecodeEngine(model, params, slots=2, max_len=16)
+        reqs = [Request(i, p, 4) for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        outs.append((logits.cpu(), [r.out for r in reqs]))
+    (l_gpu, t_gpu), (l_cpu, t_cpu) = outs
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-3, atol=1e-3)
+    assert t_gpu == t_cpu, (t_gpu, t_cpu)
+    return {"layers": 2, "compute_dtype": "float32", "prefill_tokens": [1, 64],
+            "max_abs_logit_diff": float((l_gpu - l_cpu).abs().max()),
+            "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0}
+
+
+def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
+    """Phase D: each LM kernel on the inputs that the first layer of a
+    prefill run hands it (captured in passing), its plain version and one
+    library call, beside its bound from this run's data."""
+    from repro_torch.kernels import dispatch, ref
+    seen = {}
+    originals = {n: getattr(dispatch, n) for n in LM_KERNELS}
+
+    def capture(name):
+        def fn(*args, **kwargs):
+            seen.setdefault(name, (args, kwargs))
+            return originals[name](*args, **kwargs)
+        return fn
+
+    for n in LM_KERNELS:
+        setattr(dispatch, n, capture(n))
+    try:
+        model.prefill_fn(params, {"tokens": tokens})
+    finally:
+        for n in LM_KERNELS:
+            setattr(dispatch, n, originals[n])
+    torch.cuda.synchronize()
+    out = []
+
+    (eff, slot, xin, num_pe, cap), _ = seen["onehot_dispatch"]
+    g, t, d = xin.shape
+    es = xin.element_size()
+    keep = (eff >= 0) & (eff < num_pe) & (slot >= 0) & (slot < cap)
+    kept = int(keep.sum())
+    cells = (torch.arange(g, device=dev)[:, None] * (num_pe * cap)
+             + eff.long() * cap + slot.long())[keep]
+    rows = xin[keep]
+    lib_buf = torch.zeros((g * num_pe * cap, d), dtype=xin.dtype, device=dev)
+    fn = lambda: dispatch.onehot_dispatch(eff, slot, xin, num_pe, cap)
+    b_ms, b_by = bound_ms(g * t * 8 + kept * d * es + g * num_pe * cap * d * es, kept * d)
+    out.append({
+        "name": "onehot_dispatch", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_onehot.cu",
+        "replaces": "src/repro/kernels/moe_onehot.py:74",
+        "launches": counts["onehot_dispatch"], "max_abs_err": max_err["onehot_dispatch"],
+        "ms": cuda_ms(fn, iters=50), "device_ms": device_ms(
+            fn, ("dispatch_kernel", "Memset"), calls=50, per_call=2),
+        "plain_ms": cuda_ms(lambda: ref.onehot_dispatch(eff, slot, xin, num_pe, cap), iters=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lib_buf.index_put_((cells,), rows, accumulate=True),
+                              iters=50),
+        "shape": f"prefill layer 0: G={g} T={t} -> [{g}, {num_pe}, {cap}, {d}] "
+                 f"{str(xin.dtype).removeprefix('torch.')}, {kept} rows kept",
+        "library_call": "index_put_(accumulate=True) on precomputed flat cells"})
+    out[-1]["kernel_ms"] = out[-1]["ms"]
+
+    (eff, slot, packed, gate), _ = seen["onehot_combine"]
+    g, num_pe, cap, d = packed.shape
+    t = eff.shape[1]
+    es = packed.element_size()
+    keep = (eff >= 0) & (eff < num_pe) & (slot >= 0) & (slot < cap)
+    flat = (torch.arange(g, device=dev)[:, None] * (num_pe * cap)
+            + eff.long() * cap + slot.long())
+    used = int(torch.unique(flat[keep]).numel())
+    flat = torch.where(keep, flat, 0).reshape(-1)
+    packed_rows = packed.view(-1, d)
+    gate_col = gate.reshape(-1, 1)
+    fn = lambda: dispatch.onehot_combine(eff, slot, packed, gate)
+    b_ms, b_by = bound_ms(g * t * (8 + es) + used * d * es + g * t * d * es, g * t * d)
+    out.append({
+        "name": "onehot_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_onehot.cu",
+        "replaces": "src/repro/kernels/moe_onehot.py:105",
+        "launches": counts["onehot_combine"], "max_abs_err": max_err["onehot_combine"],
+        "ms": cuda_ms(fn, iters=50),
+        "device_ms": device_ms(fn, "combine_kernel", calls=50),
+        "plain_ms": cuda_ms(lambda: ref.onehot_combine(eff, slot, packed, gate), iters=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: packed_rows.index_select(0, flat) * gate_col, iters=50),
+        "shape": f"prefill layer 0: [{g}, {num_pe}, {cap}, {d}] -> G={g} T={t} "
+                 f"{str(packed.dtype).removeprefix('torch.')}, {used} cells read",
+        "library_call": "index_select then * gate on precomputed flat cells"})
+    out[-1]["kernel_ms"] = out[-1]["ms"]
+
+    (q, k, v), kw = seen["flash_attention"]
+    assert kw["causal"] and not kw["window"] and not kw["softcap"], kw
+    kw = {"causal": True, "window": 0}
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    window = kw["window"]
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if kw["causal"] else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum()) * b * h
+    fn = lambda: dispatch.flash_attention(q, k, v, **kw)
+    b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                          4 * dh * pairs, BF16_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": counts["flash_attention"], "max_abs_err": max_err["flash_attention"],
+        "ms": cuda_ms(fn, iters=20), "device_ms": device_ms(fn, "flash_kernel", calls=20),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=20),
+        "shape": f"prefill layer 0: B={b} S={sq} H={h} KV={k.shape[2]} dh={dh} causal "
+                 f"{str(q.dtype).removeprefix('torch.')}, {pairs} (q, k) pairs",
+        "library_call": "F.scaled_dot_product_attention(is_causal=True)"})
+    out[-1]["kernel_ms"] = out[-1]["ms"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -221,7 +598,7 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    logs = _build.build("route_accumulate", "cms_update")
+    logs = _build.build()          # every csrc/*.cu, one nvcc each, in parallel
     build_s = time.perf_counter() - t0
     for kernel, log in logs.items():
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
@@ -262,8 +639,7 @@ def main() -> int:
             chunks, mask = d.chunk(tuples), None
         n_chunks = chunks.shape[0]
         torch.cuda.synchronize()
-        route_accumulate.launches = 0
-        cms_update.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         merged, stats = impl.run(chunks, mask=mask)
         torch.cuda.synchronize()
@@ -274,6 +650,7 @@ def main() -> int:
             launches[k] += c
             want = n_chunks if k == kernel.__name__ else 0
             assert c == want, f"{cfg}: {k} launched {c} times, expected {want}"
+        assert not any(lm_counts().values()), lm_counts()
         want = oracle(tuples[:, 0])
         got = merged.cpu().numpy()
         assert got.shape == want.shape and np.array_equal(got, want), \
@@ -396,6 +773,23 @@ def main() -> int:
     for x in sorted(set(picked.values())):
         host[f"schedule_secpes_x{x}"] = host_ms(lambda: schedule_secpes(hist, x))
     print("host_ms", json.dumps(host))
+
+    # ---- A. the MoE LM's kernels against their plain versions
+    lm_err = check_lm_kernels(dev)
+    print("lm_kernel_check", json.dumps(lm_err))
+    torch.cuda.empty_cache()
+
+    # ---- B. the LM path at full width (depth cut to LM_LAYERS)
+    rec, lm_launches, model, params, tokens = lm_path(dev)
+    print("lm_e2e", json.dumps(rec))
+    print("lm_profile", json.dumps(profile_lm(dev, model, params, tokens)))
+
+    # ---- C. card against CPU, full width, 2 layers, float32
+    print("lm_cpu_parity", json.dumps(lm_cpu_parity(dev, params)))
+
+    # ---- D. the LM kernels' times at the prefill shape
+    kernels += lm_kernel_times(dev, model, params, tokens, lm_launches, lm_err)
+    del model, params
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

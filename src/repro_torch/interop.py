@@ -1,11 +1,12 @@
 """Carry the JAX package's runtime state into the port, through numpy.
 
-Ditto has no weights: its parameters are the ``RoutePlan`` (a static or
-tuned plan) and the ``ExecState`` (a stream's state mid-flight, as a
-checkpoint holds it).  Convert the JAX pytrees to numpy on their side (for
-example ``jax.tree.map(np.asarray, dataclasses.asdict(state))``) and build
-the port's dataclasses here, so both packages can start from the same plan
-or the same mid-stream state.
+Ditto's executor has no weights: its parameters are the ``RoutePlan`` (a
+static or tuned plan) and the ``ExecState`` (a stream's state mid-flight,
+as a checkpoint holds it).  The language models do: their params pytree
+has one layout in both packages.  Convert the JAX pytrees to numpy on
+their side (for example ``jax.tree.map(np.asarray, params)``) and build the
+port's objects here, so both packages can start from the same plan, the
+same mid-stream state or the same weights.
 """
 from __future__ import annotations
 
@@ -56,3 +57,49 @@ def state_to_numpy(state: ExecState) -> dict:
                      else v.detach().cpu().numpy())
             for f in dataclasses.fields(state)
             for v in (getattr(state, f.name),)}
+
+
+def _leaf_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no numpy-torch bridge
+        return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def tree_from_numpy(tree, device) -> dict:
+    """A nested dict of numpy arrays as tensors on ``device`` (bfloat16
+    leaves stay bfloat16); no check of its layout."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf_tensor(tree, device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
+    """The port's LM params from a nested dict of numpy arrays in the JAX
+    package's layout (``repro.models.transformer.init_params``).  Leaves
+    keep their dtypes.  Raises if the tree does not fit ``cfg``: the block
+    keys of its layer pattern, every block leaf stacked over
+    ``cfg.num_periods``, and the embedding table's shape."""
+    device = resolve_device(device)
+    params = tree_from_numpy(tree, device)
+    keys = {f"{j}.{part}" for j in range(cfg.period)
+            for part in ("norm1", "mixer", "norm2", "ffn")}
+    blocks = params.get("blocks", {})
+    if set(blocks) != keys:
+        raise ValueError(f"{cfg.name}: block keys {sorted(blocks)} are not "
+                         f"{sorted(keys)}")
+    stacked = [t for t in _leaves(blocks) if t.shape[:1] != (cfg.num_periods,)]
+    if stacked:
+        raise ValueError(f"{cfg.name}: block leaves must be stacked over "
+                         f"{cfg.num_periods} periods, got {stacked[0].shape}")
+    emb = params["embed"]["emb"].shape
+    if emb != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"{cfg.name}: embedding {tuple(emb)} is not "
+                         f"{(cfg.padded_vocab, cfg.d_model)}")
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]

@@ -3,8 +3,11 @@ ctypes wrappers with launch counters, and their plain PyTorch versions.
 
   route_accumulate -- PriPE/SecPE buffer update (add|max, int32|float32)
   cms_update       -- count-min sketch multi-row update (HHD)
+  onehot_dispatch  -- MoE capacity-slot pack (row scatter)
+  onehot_combine   -- MoE capacity-slot unpack (row gather, gate-scaled)
+  flash_attention  -- online-softmax attention forward (causal, window, GQA)
 
-``dispatch`` is what the executor calls: the tensor's device picks the
+``dispatch`` is what the executor and the models call: the tensor's device picks the
 plain version (CPU) or the kernel (CUDA).
 """
 from repro_torch.kernels import dispatch, ref

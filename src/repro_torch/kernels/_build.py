@@ -46,11 +46,13 @@ def _target(name: str) -> tuple[Path, Path]:
 
 
 def build(*names: str) -> dict[str, str]:
-    """Compile the named sources that are not built yet, all at once.
+    """Compile the named sources (every ``csrc/*.cu`` when none is named)
+    that are not built yet, all at once.
 
     Returns each name's compiler output (the ``-Xptxas -v`` register and
     shared-memory report; empty for a library that was already built).
     Raises RuntimeError, after every nvcc has ended, if any build failed."""
+    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
     logs = dict.fromkeys(names, "")
     with _lock:
         jobs = []

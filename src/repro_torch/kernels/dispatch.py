@@ -1,11 +1,12 @@
-"""The kernel entry points the executor and the apps call.
+"""The kernel entry points the executor, the apps and the models call.
 
 The device of the carried tensor decides which realization runs: a tensor
 on the CPU takes the plain PyTorch version (``ref``), a tensor on a CUDA
 device launches the hand-written kernel or raises.  There is no other
 selection: no environment variable, no automatic pick, no fallback.
 
-Both updates fold into the carried tensor IN PLACE and return it.
+The two PE updates fold into the carried tensor IN PLACE and return it;
+the MoE pack/unpack and attention return new tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.cms_update import cms_update as _cms_cuda
+from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
+from repro_torch.kernels.moe_onehot import onehot_combine as _combine_cuda
+from repro_torch.kernels.moe_onehot import onehot_dispatch as _dispatch_cuda
 from repro_torch.kernels.route_accumulate import route_accumulate as _route_cuda
 
 
@@ -59,3 +63,39 @@ def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
     return _cms_cuda(sketch, eff.to(torch.int32).contiguous(),
                      cols.to(torch.int32).contiguous(),
                      value.to(sketch.dtype).contiguous())
+
+
+def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
+                    num_pe: int, capacity: int) -> torch.Tensor:
+    """Pack values [G, T, D] into [G, num_pe, capacity, D] capacity slots at
+    (eff, slot) [G, T]; dropped tuples are skipped, duplicate cells sum."""
+    if not _on_cuda(values):
+        return ref.onehot_dispatch(eff, slot, values, num_pe, capacity)
+    return _dispatch_cuda(eff.to(torch.int32).contiguous(),
+                          slot.to(torch.int32).contiguous(), values.contiguous(),
+                          num_pe, capacity)
+
+
+def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
+                   gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Unpack [G, num_pe, capacity, D] slots to [G, T, D] tuple order, scaled
+    by ``gate`` [G, T] (None = 1); dropped tuples give zero rows."""
+    if not _on_cuda(packed):
+        return ref.onehot_combine(eff, slot, packed, gate)
+    if gate is not None:
+        gate = gate.to(packed.dtype).contiguous()
+    return _combine_cuda(eff.to(torch.int32).contiguous(),
+                         slot.to(torch.int32).contiguous(), packed.contiguous(), gate)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Attention forward q [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> [B, Sq, H, dh]
+    with positions by index (causal, sliding ``window``, GQA by index)."""
+    if not _on_cuda(q):
+        if softcap:
+            raise ValueError("flash_attention has no logit soft-capping")
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=causal, window=window, softcap=softcap)

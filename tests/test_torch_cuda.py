@@ -6,7 +6,12 @@ so it also runs where only PyTorch is installed:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Integer results and float ``max`` must be bit-exact; float ``add`` may
-differ by the order of the atomic adds (rtol = atol = 1e-5).
+differ by the order of the atomic adds (rtol = atol = 1e-5).  The MoE pack
+and unpack are exact on unique cells.  Where duplicate cells sum, the
+atomics and ``index_add_`` round each partial sum in another order, so the
+error scales with the largest partial sum, not with the result: rtol 1e-5
+(float32) or 2e-2 (bfloat16) of that magnitude.  Flash attention within
+1e-5 (float32) or 2e-2 (bfloat16), as in tests/test_kernels.py.
 """
 import numpy as np
 import pytest
@@ -15,11 +20,14 @@ import torch
 from repro_torch.apps import hhd, histo, hll
 from repro_torch.core import Ditto
 from repro_torch.data.zipf import zipf_tuples
-from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels.cms_update import cms_update
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
 from repro_torch.kernels.route_accumulate import route_accumulate
 
 DTYPES = {"int32": torch.int32, "float32": torch.float32}
+FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @pytest.fixture
@@ -116,3 +124,153 @@ def test_executor_on_card_matches_cpu_and_oracle(cuda_device, app):
     np.testing.assert_array_equal(m_cpu.numpy(), oracle(tuples[:, 0]))
     for field in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
         assert torch.equal(getattr(s_gpu, field).cpu(), getattr(s_cpu, field)), field
+
+
+def _moe_cells(rng, g, t, pe, cap, unique, device):
+    """eff, slot [G, T] int32 on ``device``: occurrence-rank slots (unique
+    cells) or random ones (duplicates), with eff = -1, eff = pe and
+    slot >= cap among them (dropped)."""
+    eff = torch.from_numpy(rng.integers(0, pe, (g, t)).astype(np.int32))
+    slot = (ops.occurrence_rank(eff, pe) if unique
+            else torch.from_numpy(rng.integers(0, cap, (g, t)).astype(np.int32)))
+    drop = torch.from_numpy(rng.random((g, t)))
+    eff[drop < 0.03] = -1
+    eff[(drop >= 0.03) & (drop < 0.06)] = pe
+    slot[(drop >= 0.06) & (drop < 0.09)] = cap + 1
+    return eff.to(device), slot.to(device)
+
+
+def _close(got, want, dtype, exact, scale=1.0):
+    """Bit-exact, or within rtol = atol = tol * ``scale`` (the magnitude the
+    accumulators reach; 1 where no sum is rounded in another order)."""
+    torch.cuda.synchronize()
+    if exact:
+        assert torch.equal(got.cpu(), want.cpu())
+    else:
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                                   rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unique", [True, False])
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("g,t,pe,cap,d", [(8, 3072, 72, 60, 2048), (1, 24, 72, 4, 2048),
+                                          (2, 37, 5, 8, 100)])
+def test_onehot_dispatch_vs_plain(cuda_device, g, t, pe, cap, d, dtype, unique):
+    """The prefill (8 groups of 512 tokens, top-6) and decode (4 slots)
+    shapes of moonshot at full width, and a ragged width (no 16-byte path)."""
+    rng = np.random.default_rng(g * t + d)
+    eff, slot = _moe_cells(rng, g, t, pe, cap, unique, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((g, t, d)).astype(np.float32))
+    x = x.to(cuda_device, FLOATS[dtype])
+    want = ref.onehot_dispatch(eff, slot, x, pe, cap)
+    before = onehot_dispatch.launches
+    got = dispatch.onehot_dispatch(eff, slot, x, pe, cap)
+    assert onehot_dispatch.launches == before + 1
+    scale = float(ref.onehot_dispatch(eff, slot, x.float().abs(), pe, cap).max())
+    _close(got, want, dtype, exact=unique, scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gate", [True, False])
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("g,t,pe,cap,d", [(8, 3072, 72, 60, 2048), (2, 37, 5, 8, 100)])
+def test_onehot_combine_vs_plain(cuda_device, g, t, pe, cap, d, dtype, with_gate):
+    rng = np.random.default_rng(g + t + d)
+    eff, slot = _moe_cells(rng, g, t, pe, cap, False, cuda_device)
+    packed = torch.from_numpy(rng.standard_normal((g, pe, cap, d)).astype(np.float32))
+    packed = packed.to(cuda_device, FLOATS[dtype])
+    gate = (torch.from_numpy(rng.random((g, t)).astype(np.float32))
+            .to(cuda_device, FLOATS[dtype]) if with_gate else None)
+    want = ref.onehot_combine(eff, slot, packed, gate)
+    before = onehot_combine.launches
+    got = dispatch.onehot_combine(eff, slot, packed, gate)
+    assert onehot_combine.launches == before + 1
+    _close(got, want, dtype, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("s,h,kv,window", [(1024, 16, 16, 0), (1000, 16, 16, 0),
+                                           (1024, 16, 4, 256), (1000, 16, 4, 256),
+                                           (77, 4, 2, 0)])
+def test_flash_attention_vs_plain(cuda_device, s, h, kv, window, dtype):
+    """The prefill shape (B=4, S=1024, dh=128), a ragged S, GQA and a window."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h + kv)
+    b, dh = (4, 128) if s >= 1000 else (2, 64)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(FLOATS[dtype])
+               for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    before = flash_attention.launches
+    got = dispatch.flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    _close(got, want, dtype, exact=False)
+
+
+@pytest.mark.cuda
+def test_flash_attention_noncausal_vs_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 130, 2, 32), generator=gen, device=cuda_device)
+               for _ in range(3))
+    got = dispatch.flash_attention(q, k, v, causal=False)
+    _close(got, ref.flash_attention(q, k, v, causal=False), "float32", exact=False)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    """Wrong dtype, device or contiguity raises; nothing launches."""
+    eff = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    x = torch.zeros((1, 8, 16), device=cuda_device)
+    q = torch.zeros((1, 8, 2, 16), device=cuda_device)
+    before = (onehot_dispatch.launches, onehot_combine.launches, flash_attention.launches)
+    with pytest.raises(ValueError, match="int32"):
+        onehot_dispatch(eff.long(), eff, x, 2, 4)
+    with pytest.raises(ValueError, match="float32"):
+        onehot_dispatch(eff, eff, x.double(), 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        onehot_dispatch(eff.cpu(), eff.cpu(), x.cpu(), 2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        onehot_dispatch(eff, eff, x[..., ::2], 2, 4)
+    with pytest.raises(ValueError, match="gate"):
+        onehot_combine(eff, eff, torch.zeros((1, 2, 4, 16), device=cuda_device),
+                       torch.ones((1, 8), device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.cpu(), q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="dh <= 256"):
+        flash_attention(*(torch.zeros((1, 8, 2, 272), device=cuda_device),) * 3)
+    with pytest.raises(ValueError, match="soft-capping"):
+        flash_attention(q, q, q, softcap=30.0)
+    assert before == (onehot_dispatch.launches, onehot_combine.launches,
+                      flash_attention.launches)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
+    """With every plain version made to raise, the dispatch entry points and
+    the MoE LM's prefill and decode still run on CUDA tensors: a CUDA
+    tensor goes to a kernel or nowhere."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention, zoo
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("pe_buffer_update", "cms_update", "onehot_dispatch",
+                 "onehot_combine", "flash_attention"):
+        monkeypatch.setattr(ref, name, refuse)
+    monkeypatch.setattr(attention, "sdpa_chunked", refuse)
+    model = zoo.build(get_reduced("moonshot-v1-16b-a3b"), device=cuda_device)
+    params = model.init_params(model.generator(0))
+    tokens = torch.randint(0, 256, (2, 64), device=cuda_device)
+    counts = (onehot_dispatch.launches, onehot_combine.launches, flash_attention.launches)
+    logits = model.prefill_fn(params, {"tokens": tokens})
+    cache = model.init_cache(params, 2, 8)
+    model.decode_fn(params, {"tokens": tokens[:, :1], "cache": cache, "cache_len": 0})
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    layers = model.cfg.num_layers
+    assert (onehot_dispatch.launches - counts[0], onehot_combine.launches - counts[1],
+            flash_attention.launches - counts[2]) == (2 * layers, 2 * layers, layers)

@@ -138,3 +138,51 @@ def test_dispatch_rejects_other_devices():
     i = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel realization"):
         dispatch.pe_buffer_update(buf, i, i, i, "add")
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    """The MoE and attention kernel wrappers raise on CPU tensors too."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
+    i = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        onehot_dispatch(i, i, torch.zeros((1, 3, 8)), 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        onehot_combine(i, i, torch.zeros((1, 2, 4, 8)))
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+
+
+def test_cuda_branch_of_dispatch_calls_only_kernels(monkeypatch):
+    """Routing of ``dispatch`` for a tensor it takes as CUDA: every entry
+    point calls its kernel wrapper, and no plain version (each one here
+    raises).  The card test of the same rule is in test_torch_cuda.py."""
+    from repro_torch.kernels import ref
+    called = []
+
+    def kernel(name):
+        def run(*args, **kwargs):
+            called.append(name)
+            return args[0]
+        return run
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA branch reached a plain version")
+
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda t: True)
+    for name in ("_route_cuda", "_cms_cuda", "_dispatch_cuda", "_combine_cuda",
+                 "_flash_cuda"):
+        monkeypatch.setattr(dispatch, name, kernel(name))
+    for name in ("pe_buffer_update", "cms_update", "onehot_dispatch",
+                 "onehot_combine", "flash_attention"):
+        monkeypatch.setattr(ref, name, refuse)
+    i = torch.zeros((1, 3), dtype=torch.int32)
+    x = torch.zeros((1, 3, 8))
+    dispatch.pe_buffer_update(torch.zeros((2, 4)), i[0], i[0], x[0, :, 0], "add")
+    dispatch.cms_update(torch.zeros((2, 1, 4)), i[0], i[0][:, None], x[0, :, 0])
+    dispatch.onehot_dispatch(i, i, x, 2, 4)
+    dispatch.onehot_combine(i, i, torch.zeros((1, 2, 4, 8)), x[..., 0])
+    dispatch.flash_attention(x[:, :, None], x[:, :, None], x[:, :, None])
+    assert called == ["_route_cuda", "_cms_cuda", "_dispatch_cuda", "_combine_cuda",
+                      "_flash_cuda"]
