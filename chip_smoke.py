@@ -35,10 +35,13 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      and GQA (KV = 4), causal with and without a window of 256;
   B. drive the LM path with 8 of its 48 layers and seeded random weights:
      prefill_fn on [4, 1024] tokens (finite logits; each kernel launches
-     once per layer), then a DecodeEngine with repro.launch.serve's defaults
-     (8 requests, prompts of 4-16 tokens, 16 new tokens, 4 slots, max_len
-     128): every request returns 16 tokens, and dispatch and combine launch
-     once per layer per decode_fn call;
+     once per layer); a smoke of the serve CLI's DecodeEngine run (8
+     requests, prompts of 4-16 tokens, 16 new tokens, 4 slots, max_len 128:
+     every request returns 16 tokens); then decode at serving load, a
+     DecodeEngine with 64 busy slots whose contexts of 1024-3967 tokens are
+     already cached, timed over 32 steps.  Dispatch and combine launch once
+     per layer per decode_fn call; prefill and a serving-load step are
+     profiled;
   C. the card against the CPU at full width with 2 layers in float32 (TF32
      off): prefill logits within 1e-3 and identical greedy tokens of a
      2-request DecodeEngine, on the same weights;
@@ -70,7 +73,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 SEED = 3
 LM_LAYERS = 8                  # of 48: the float32 weights of 48 do not fit 80 GB
 PREFILL_SHAPE = (4, 1024)
-DECODE_SLOTS, DECODE_MAX_LEN = 4, 128
+SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
+LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
+LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -246,24 +251,28 @@ def check_lm_kernels(dev) -> dict:
     """Phase A: the three LM kernels against their plain versions on the
     same CUDA tensors.  Pack/unpack must be bit-exact on unique cells (one
     add onto zero; the gate product rounds once in both).  Where duplicate
-    cells sum, the partial sums round in another order, so the tolerance
-    (1e-5 float32, 2e-2 bfloat16) is taken of the largest sum of |x| in a
-    cell.  Flash: rtol = atol = 1e-5 (float32) or 2e-2 (bfloat16), as in
-    tests/test_kernels.py."""
+    cells sum, the partial sums round in another order, so each cell's
+    error is held to tol * (1 + the sum of |x| that went into it), tol 1e-5
+    (float32) or 2e-2 (bfloat16).  Flash: rtol = atol = 1e-5 (float32) or
+    2e-2 (bfloat16), as in tests/test_kernels.py."""
     from repro_torch.kernels import dispatch, ops, ref
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     err = dict.fromkeys(LM_KERNELS, 0.0)
     floats = ((torch.float32, 1e-5), (torch.bfloat16, 2e-2))
 
-    def compare(name, got, want, tol, scale=1.0):
+    def compare(name, got, want, tol, magnitude=None):
+        """Bit-exact for tol 0, else |got - want| <= tol * (1 + magnitude)
+        element by element; magnitude defaults to |want|."""
         torch.cuda.synchronize()
-        err[name] = max(err[name], float((got.double() - want.double()).abs().max()))
-        if tol:
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol * scale)
-        else:
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        diff = (got.double() - want.double()).abs()
+        err[name] = max(err[name], float(diff.max()))
+        if not tol:
             assert torch.equal(got, want), f"{name}: max |err| {err[name]}"
+            return
+        mag = want.double().abs() if magnitude is None else magnitude.double()
+        assert bool((diff <= tol * (1 + mag)).all()), f"{name}: max |err| {err[name]}"
 
     pe, d = 72, 2048                 # 64 experts + X = 8 slots, d_model
     for g, t, cap in ((8, 3072, 60), (1, 24, 4)):       # prefill, decode
@@ -277,10 +286,9 @@ def check_lm_kernels(dev) -> dict:
             e, s = e.to(torch.int32), s.to(torch.int32)
             for dtype, tol in floats:
                 x = torch.randn((g, t, d), generator=gen, device=dev).to(dtype)
-                scale = float(ref.onehot_dispatch(e, s, x.float().abs(), pe, cap).max())
                 compare("onehot_dispatch", dispatch.onehot_dispatch(e, s, x, pe, cap),
                         ref.onehot_dispatch(e, s, x, pe, cap), 0 if unique else tol,
-                        scale)
+                        ref.onehot_dispatch(e, s, x.float().abs(), pe, cap))
                 packed = torch.randn((g, pe, cap, d), generator=gen, device=dev).to(dtype)
                 gate = torch.rand((g, t), generator=gen, device=dev).to(dtype)
                 for gt in (gate, None):
@@ -300,9 +308,36 @@ def check_lm_kernels(dev) -> dict:
     return err
 
 
+def load_engine(model, params, dev):
+    """A DecodeEngine at serving load: LOAD_SLOTS slots, each holding a
+    request whose context (LOAD_CONTEXT tokens, seeded) is already in the KV
+    cache.  The cache holds seeded random K/V in place of the prompts' own:
+    the engine admits one decode step per prompt token (as the JAX engine
+    does), which at these lengths would outlast the whole script.  A decode
+    step's work does not depend on the cached values."""
+    from repro_torch.serve.engine import DecodeEngine, Request
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 2)
+    vocab = model.cfg.vocab
+    engine = DecodeEngine(model, params, slots=LOAD_SLOTS, max_len=LOAD_MAX_LEN)
+    for kv in engine.cache.values():
+        for t in kv:
+            t.normal_(generator=gen)
+    lens = rng.integers(*LOAD_CONTEXT, LOAD_SLOTS).astype(np.int32)
+    first = rng.integers(0, vocab, LOAD_SLOTS).astype(np.int32)
+    for i, n in enumerate(lens):
+        req = Request(1000 + i, rng.integers(0, vocab, n).astype(np.int32), LOAD_MAX_LEN)
+        req.out.append(int(first[i]))       # the token admission returns
+        engine.slot_req[i] = req
+    engine.slot_len[:] = lens
+    engine.tokens.copy_(torch.as_tensor(first, device=dev))
+    return engine
+
+
 def lm_path(dev):
     """Phase B: the MoE LM's inference entry points at full width.  Returns
-    the record, the main path's launch counts, the model and its weights."""
+    the record, the main path's launch counts, the model, its weights, the
+    prefill tokens and the serving-load engine."""
     from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
     from repro_torch.models import zoo
     from repro_torch.serve.engine import DecodeEngine, Request
@@ -335,7 +370,8 @@ def lm_path(dev):
     torch.cuda.synchronize()
     first_prefill_s = time.perf_counter() - t0
     after_prefill = lm_counts()
-    engine = DecodeEngine(counted, params, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+    # a smoke of the serve CLI's run: admission, continuous batching, exit
+    engine = DecodeEngine(counted, params, slots=SMOKE_SLOTS, max_len=SMOKE_MAX_LEN)
     for req in requests:
         engine.submit(req)
     t0 = time.perf_counter()
@@ -344,7 +380,23 @@ def lm_path(dev):
         engine.step()
         ticks += 1
     torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+    smoke_s = time.perf_counter() - t0
+    smoke_calls = calls[0]
+    del engine
+    # decode at serving load: LOAD_SLOTS busy slots with long contexts
+    engine = load_engine(counted, params, dev)
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOAD_STEPS):
+        assert engine.step() == LOAD_SLOTS
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lens = torch.as_tensor(engine.slot_len, device=dev)
+    load_logits, _ = counted.decode_fn(params, {"tokens": engine.tokens[:, None],
+                                                "cache": engine.cache, "cache_len": lens})
+    torch.cuda.synchronize()
     counts = lm_counts()                  # ---- to here
     from repro_torch.kernels.cms_update import cms_update
     from repro_torch.kernels.route_accumulate import route_accumulate
@@ -355,48 +407,51 @@ def lm_path(dev):
     assert after_prefill == dict.fromkeys(LM_KERNELS, LM_LAYERS), after_prefill
     assert all(len(r.out) == 16 and r.done for r in requests), \
         [len(r.out) for r in requests]
+    assert load_logits.shape == (LOAD_SLOTS, 1, cfg.vocab)
+    assert bool(torch.isfinite(load_logits).all()), "decode logits are not finite"
+    assert all(len(r.out) == 3 + LOAD_STEPS and not r.done
+               for r in engine.slot_req), "a serving-load slot lost a token"
     for name in ("onehot_dispatch", "onehot_combine"):
         assert counts[name] == LM_LAYERS * (1 + calls[0]), (name, counts, calls)
     assert counts["flash_attention"] == LM_LAYERS, counts
-    del logits
+    del logits, load_logits
     steady = [host_ms(lambda: model.prefill_fn(params, {"tokens": tokens}), calls=3)]
     n_tok = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
+    contexts = engine.slot_len - 2 - LOAD_STEPS
     rec = {"arch": cfg.name, "layers": LM_LAYERS, "params_init_s": init_s,
            "prefill_tokens": list(PREFILL_SHAPE), "first_prefill_s": first_prefill_s,
            "prefill_ms_per_forward": steady[0],
            "prefill_tokens_per_s": n_tok / (steady[0] * 1e-3),
-           "decode_requests": len(requests), "decode_new_tokens": 16 * len(requests),
-           "prompt_tokens": int(sum(len(r.prompt) for r in requests)),
-           "decode_fn_calls": calls[0], "engine_ticks": ticks, "decode_s": decode_s,
-           "decode_ms_per_call": 1e3 * decode_s / calls[0],
-           "decode_tokens_per_s": 16 * len(requests) / decode_s,
-           "launches": counts,
+           "decode_load": {
+               "slots": LOAD_SLOTS, "max_len": LOAD_MAX_LEN, "steps": LOAD_STEPS,
+               "context_min": int(contexts.min()), "context_max": int(contexts.max()),
+               "context_mean": float(contexts.mean()), "s": load_s,
+               "ms_per_step": 1e3 * load_s / LOAD_STEPS,
+               "tokens_per_s": LOAD_SLOTS * LOAD_STEPS / load_s},
+           "serve_smoke": {
+               "requests": len(requests), "new_tokens": 16 * len(requests),
+               "prompt_tokens": int(sum(len(r.prompt) for r in requests)),
+               "slots": SMOKE_SLOTS, "max_len": SMOKE_MAX_LEN,
+               "decode_fn_calls": smoke_calls, "engine_ticks": ticks, "s": smoke_s},
+           "decode_fn_calls": calls[0], "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    return rec, counts, model, params, tokens
+    return rec, counts, model, params, tokens, engine
 
 
-def profile_lm(dev, model, params, tokens) -> dict:
-    """Where a prefill forward and a decode step of the LM spend the card's
-    time: torch.profiler over one prefill_fn call and over 8 decode_fn calls
-    on 4 slots (the serve run's width), kernel rows only, against the wall
-    time under the profiler (which stretches the host side, so the busy
-    share is a lower bound)."""
+def profile_lm(model, params, tokens, engine) -> dict:
+    """Where a prefill forward and a decode step at serving load spend the
+    card's time: torch.profiler over one prefill_fn call and over 8 steps of
+    the serving-load engine, kernel rows only, against the wall time under
+    the profiler (which stretches the host side, so the busy share is a
+    lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.serve.engine import decode_tokens
-    cache = model.init_cache(params, DECODE_SLOTS, DECODE_MAX_LEN)
-    tok = tokens[0, :DECODE_SLOTS].to(torch.int32)
-    lens = torch.full((DECODE_SLOTS,), 16, dtype=torch.int32, device=dev)
-
-    def decode():
-        decode_tokens(model, params, tok, cache, lens)
 
     def prefill():
         model.prefill_fn(params, {"tokens": tokens})
 
     out = {}
-    for name, fn, calls in (("prefill", prefill, 1), ("decode_step", decode, 8)):
+    for name, fn, calls in (("prefill", prefill, 1), ("decode_step", engine.step, 8)):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -419,6 +474,7 @@ def profile_lm(dev, model, params, tokens) -> dict:
                 and e.key.startswith("aten::")) / calls,
             "top_kernels_ms_per_call": {e.key[:80]: 1e-3 * e.self_device_time_total / calls
                                         for e in top}}
+    out["decode_step"]["slots"] = LOAD_SLOTS
     return out
 
 
@@ -505,11 +561,13 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
             fn, ("dispatch_kernel", "Memset"), calls=50, per_call=2),
         "plain_ms": cuda_ms(lambda: ref.onehot_dispatch(eff, slot, xin, num_pe, cap), iters=20),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: lib_buf.index_put_((cells,), rows, accumulate=True),
+        "library_ms": cuda_ms(lambda: lib_buf.zero_().index_put_((cells,), rows,
+                                                                 accumulate=True),
                               iters=50),
         "shape": f"prefill layer 0: G={g} T={t} -> [{g}, {num_pe}, {cap}, {d}] "
                  f"{str(xin.dtype).removeprefix('torch.')}, {kept} rows kept",
-        "library_call": "index_put_(accumulate=True) on precomputed flat cells"})
+        "library_call": "zero_() then index_put_(accumulate=True) on precomputed "
+                        "flat cells"})
     out[-1]["kernel_ms"] = out[-1]["ms"]
 
     (eff, slot, packed, gate), _ = seen["onehot_combine"]
@@ -780,9 +838,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- B. the LM path at full width (depth cut to LM_LAYERS)
-    rec, lm_launches, model, params, tokens = lm_path(dev)
+    rec, lm_launches, model, params, tokens, engine = lm_path(dev)
     print("lm_e2e", json.dumps(rec))
-    print("lm_profile", json.dumps(profile_lm(dev, model, params, tokens)))
+    print("lm_profile", json.dumps(profile_lm(model, params, tokens, engine)))
+    del engine
+    torch.cuda.empty_cache()
 
     # ---- C. card against CPU, full width, 2 layers, float32
     print("lm_cpu_parity", json.dumps(lm_cpu_parity(dev, params)))

@@ -54,8 +54,6 @@ class ArchConfig:
     tie_embeddings: bool = True
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    q_chunk: int = 1024               # sdpa_chunked tiles (the CPU path)
-    kv_chunk: int = 1024
 
     def __post_init__(self):
         if len(self.block_pattern) != len(self.ffn_pattern):

@@ -22,5 +22,5 @@ REDUCED = ArchConfig(
     block_pattern=("attn",), ffn_pattern=("moe",),
     num_experts=8, top_k=2, moe_d_ff=32, num_shared_experts=1,
     shared_d_ff=64, ditto_secondary=4, moe_group_size=64,
-    compute_dtype="float32", q_chunk=16, kv_chunk=16,
+    compute_dtype="float32",
 )

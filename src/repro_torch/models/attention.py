@@ -1,16 +1,17 @@
-"""Attention: GQA + RoPE + optional sliding window + logit soft-capping, a
-memory-bounded chunked online-softmax path, and a KV-cache decode path.
+"""Attention: GQA + RoPE + optional sliding window, a full-sequence path and
+a KV-cache decode path (with logit soft-capping).
 
 The PyTorch counterpart of ``repro/models/attention.py`` (self-attention
 only: cross-attention belongs to the encoder-decoder family, not ported).
 Layout: activations [B, S, D], heads [B, S, H, dh].  The full-sequence
-``attention`` runs the hand-written flash kernel on a CUDA tensor and the
-plain ``sdpa_chunked`` on a CPU tensor; the two compute one function
-(tests/test_torch_attention.py).
+``attention`` goes through ``dispatch.flash_attention``, so the tensor's
+device decides: the hand-written flash kernel on a CUDA tensor, its plain
+version on a CPU tensor (tests/test_torch_attention.py holds that against
+the JAX package's ``sdpa_chunked``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -43,59 +44,6 @@ def init_kv_cache(batch, max_len, num_kv, head_dim, dtype, device):
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _scores_mask(q_pos, k_pos, causal: bool, window: Optional[int]):
-    """[Q, K] bool keep-mask from absolute positions."""
-    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                   device=q_pos.device)
-    if causal:
-        m &= k_pos[None, :] <= q_pos[:, None]
-    if window:
-        m &= k_pos[None, :] > q_pos[:, None] - window
-    return m
-
-
-def _repeat_kv(k, num_heads):
-    """GQA: repeat KV heads to match q heads ([B,S,Hkv,dh] -> [B,S,H,dh])."""
-    hkv = k.shape[2]
-    return k if hkv == num_heads else k.repeat_interleave(num_heads // hkv, dim=2)
-
-
-def sdpa_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=None,
-                 softcap_val=0.0, q_chunk=1024, kv_chunk=1024):
-    """Online-softmax attention: q [B,Sq,H,dh], k/v [B,Sk,Hkv,dh] ->
-    [B,Sq,H,dh]; one [B,H,q_chunk,kv_chunk] score tile at a time."""
-    b, sq, h, dh = q.shape
-    sk = k.shape[1]
-    scale = dh ** -0.5
-    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
-    outs = []
-    for q0 in range(0, sq, q_chunk):
-        qq = q[:, q0:q0 + q_chunk]
-        qc = qq.shape[1]
-        qpos = q_pos[q0:q0 + q_chunk]
-        num = torch.zeros((b, h, qc, dh), dtype=v.dtype, device=q.device)
-        m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32, device=q.device)
-        den = torch.zeros((b, h, qc), dtype=torch.float32, device=q.device)
-        for k0 in range(0, sk, kv_chunk):
-            # GQA repeat on the chunk only, never on the whole cache
-            kk = _repeat_kv(k[:, k0:k0 + kv_chunk], h)
-            vv = _repeat_kv(v[:, k0:k0 + kv_chunk], h)
-            mask = _scores_mask(qpos, k_pos[k0:k0 + kv_chunk], causal, window)
-            s = torch.einsum("bqhd,bkhd->bhqk", qq, kk).float() * scale
-            s = torch.where(mask, L.softcap(s, softcap_val), NEG_INF)
-            m_b = s.amax(dim=-1)
-            p = torch.where(mask, torch.exp(s - m_b[..., None]), 0.0)
-            num_b = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype), vv)
-            m_new = torch.maximum(m, m_b)
-            ca, cb = torch.exp(m - m_new), torch.exp(m_b - m_new)
-            num = num * ca[..., None].to(num.dtype) + num_b * cb[..., None].to(num_b.dtype)
-            den = den * ca + p.sum(dim=-1) * cb
-            m = m_new
-        out = num / den.clamp(min=1e-20)[..., None].to(num.dtype)
-        outs.append(out.transpose(1, 2))
-    return torch.cat(outs, dim=1)
-
-
 def sdpa_decode(q, k, v, *, q_pos, k_pos, window=None, softcap_val=0.0):
     """One-token attention: q [B,1,H,dh], k/v [B,S,kv,dh] -> [B,1,H,dh],
     grouped so that no head-repeated cache is made.  q_pos [1]|[B] and
@@ -121,13 +69,13 @@ def _project(x, w, cd):
 
 
 def attention(params, x, *, num_heads, num_kv, head_dim, rope_theta=10000.0,
-              causal=True, window=None, softcap_val=0.0, q_chunk=1024,
-              kv_chunk=1024, compute_dtype=None, rope=True):
+              causal=True, window=None, softcap_val=0.0, compute_dtype=None,
+              rope=True):
     """Full-sequence self-attention (prefill) over positions 0..S-1.
 
-    x: [B, S, D] -> [B, S, D].  A CUDA tensor goes through the flash
-    kernel, whose masks take positions as indices; a CPU tensor through
-    ``sdpa_chunked``."""
+    x: [B, S, D] -> [B, S, D] through ``dispatch.flash_attention``, whose
+    masks take positions as indices.  A nonzero ``softcap_val`` raises
+    there: the flash kernel has no logit soft-capping."""
     cd = compute_dtype or x.dtype
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     q = _project(x, params["wq"], cd)
@@ -136,13 +84,8 @@ def attention(params, x, *, num_heads, num_kv, head_dim, rope_theta=10000.0,
     if rope:
         cos, sin = L.rope_cos_sin(positions, head_dim, rope_theta)
         q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-    if x.device.type == "cuda":
-        out = K.flash_attention(q, k, v, causal=causal, window=window or 0,
-                                softcap=softcap_val)
-    else:
-        out = sdpa_chunked(q, k, v, q_pos=positions, k_pos=positions,
-                           causal=causal, window=window, softcap_val=softcap_val,
-                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = K.flash_attention(q, k, v, causal=causal, window=window or 0,
+                            softcap=softcap_val)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cd))
 
 

@@ -125,8 +125,7 @@ def forward(cfg: ArchConfig, params, tokens):
                 num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 rope_theta=cfg.rope_theta, causal=(mk != "attn_nocausal"),
                 window=cfg.window if mk == "attn_local" else None,
-                softcap_val=cfg.attn_softcap, q_chunk=cfg.q_chunk,
-                kv_chunk=cfg.kv_chunk, compute_dtype=cd, rope=cfg.use_rope)
+                softcap_val=cfg.attn_softcap, compute_dtype=cd, rope=cfg.use_rope)
             h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
             y, aux = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
             x = x + y

@@ -1,11 +1,12 @@
 """Parity of the port's attention with the JAX package's, on the CPU.
 
 The plain flash attention (``repro_torch.kernels.ref``, reached through
-``dispatch`` for CPU tensors) against ``repro.kernels.ref.flash_attention``
-at the shapes of tests/test_kernels.py plus a window case, and against the
-port's own ``sdpa_chunked`` (the CPU path of ``attention``); then the
-model's ``attention`` and ``attention_decode`` (per-slot lengths, the ring
-buffer) against ``repro.models.attention`` on the same weights and inputs.
+``dispatch`` for CPU tensors, the CPU path of the model's ``attention``)
+against ``repro.kernels.ref.flash_attention`` at the shapes of
+tests/test_kernels.py plus a window case, and against the JAX model's
+``sdpa_chunked``; then the model's ``attention`` and ``attention_decode``
+(per-slot lengths, the ring buffer) against ``repro.models.attention`` on
+the same weights and inputs.
 Tolerances: 1e-5 in float32 (sums in another order), 2e-2 in bfloat16,
 as in tests/test_kernels.py.
 """
@@ -56,14 +57,14 @@ def test_plain_flash_window_vs_jax_ref(causal):
 
 @pytest.mark.parametrize("window", [None, 8])
 def test_plain_flash_equals_sdpa_chunked(window):
-    """The card's path (the flash kernel's function) and the CPU path of
-    ``attention`` compute one function."""
-    q, k, v = map(torch.from_numpy, _qkv(2, 2, 32, 32, 4, 2, 16))
-    pos = torch.arange(32, dtype=torch.int32)
-    got = dispatch.flash_attention(q, k, v, window=window or 0)
-    want = attn.sdpa_chunked(q, k, v, q_pos=pos, k_pos=pos, window=window,
-                             q_chunk=16, kv_chunk=16)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    """The port's attention (the flash kernel's function) and the JAX
+    model's chunked online-softmax attention compute one function."""
+    q, k, v = _qkv(2, 2, 32, 32, 4, 2, 16)
+    pos = jnp.arange(32)
+    got = dispatch.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window or 0)
+    want = jattn.sdpa_chunked(*map(jnp.asarray, (q, k, v)), q_pos=pos, k_pos=pos,
+                              window=window, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_flash_softcap_raises():
@@ -80,12 +81,19 @@ def _params(seed, d, h, kv, dh):
 @pytest.mark.parametrize("window,softcap", [(None, 0.0), (8, 0.0), (None, 30.0)])
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)])
 def test_attention_vs_jax(h, kv, window, softcap):
+    """A nonzero soft-cap raises on every device, as the flash kernel has
+    none; no ported config sets one."""
     d, dh, s = 64, 16, 40
     jp, tp = _params(h + kv, d, h, kv, dh)
     x = np.random.default_rng(4).standard_normal((2, s, d)).astype(np.float32)
     kw = dict(num_heads=h, num_kv=kv, head_dim=dh, rope_theta=50000.0,
-              window=window, softcap_val=softcap, q_chunk=16, kv_chunk=16)
-    want = jattn.attention(jp, jnp.asarray(x), positions=jnp.arange(s), **kw)
+              window=window, softcap_val=softcap)
+    if softcap:
+        with pytest.raises(ValueError, match="soft-capping"):
+            attn.attention(tp, torch.from_numpy(x), **kw)
+        return
+    want = jattn.attention(jp, jnp.asarray(x), positions=jnp.arange(s),
+                           q_chunk=16, kv_chunk=16, **kw)
     got = attn.attention(tp, torch.from_numpy(x), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
