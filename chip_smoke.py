@@ -11,7 +11,9 @@ Phases (any failure exits non-zero before the result lines):
   2. hold each kernel against its plain PyTorch version on the same CUDA
      tensors, at the main path's shape and (route_accumulate) at a buffer
      of 2^20 bins: add/max x int32/float32, -1 padding, the
-     masked sentinel eff = num_pe, negative values under max;
+     masked sentinel eff = num_pe, negative values under max; and
+     cms_update on a chunk whose tuples all carry one key (every lane of a
+     warp aggregates onto the same cells);
   3. drive the main path -- Ditto(spec, device="cuda") -> build (Eq. 2 on a
      0.1% sample) -> run -- over the paper's 26 * 2^20 8-byte Zipf tuples in
      chunks of 4096 with M = 16 PriPEs: HISTO at alpha 0 and 3, HLL at
@@ -21,9 +23,11 @@ Phases (any failure exits non-zero before the result lines):
   4. run the first 256 chunks of the alpha-3 HISTO stream on the card and on
      the CPU: identical merged buffers and every ExecStats field identical;
   5. time each kernel, its plain version and one library call at the main
-     path's shape (CUDA events for the call, torch.profiler for the card's
-     time of the kernel alone), beside its bound from the bytes and
-     operations this chunk's data needs;
+     path's shape (CUDA events for the call, the kernel and the library call
+     in turns; torch.profiler for the card's time of the kernel alone),
+     beside its bound from the bytes and operations this chunk's data
+     needs; cms_update's card time also at an alpha-0 chunk, and the host
+     time of each piece of its call (the cms_update_host line);
   6. profile 64 chunks of every configuration (torch.profiler): the card's
      time and the host's aten ops per chunk against the wall time per
      chunk; time the app's PrePE and the greedy scheduler alone.
@@ -32,7 +36,9 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      plain versions on CUDA tensors at the prefill and decode shapes:
      float32 and bfloat16, dropped tuples (eff = -1, eff = P, slot >= C),
      duplicate cells, gate given or None; flash at S = 1024 and 1000, H = KV
-     and GQA (KV = 4), causal with and without a window of 256;
+     and GQA (KV = 4), causal with and without a window of 256, and at dh 64
+     and 256, S = 1 and q scaled by 8 (bf16 on the tensor cores, float32 on
+     the CUDA cores);
   B. drive the LM path with 8 of its 48 layers and seeded random weights:
      prefill_fn on [4, 1024] tokens (finite logits; each kernel launches
      once per layer); a smoke of the serve CLI's DecodeEngine run (8
@@ -46,7 +52,8 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      off): prefill logits within 1e-3 and identical greedy tokens of a
      2-request DecodeEngine, on the same weights;
   D. time each new kernel, its plain version and one library call on the
-     first layer's inputs of a prefill run, beside its bound.
+     first layer's inputs of a prefill run, beside its bound; flash also on
+     float32 copies of those inputs (the CUDA-core kernel).
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
@@ -91,6 +98,16 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_turns(fns: dict, iters: int = 200) -> dict:
+    """``cuda_ms`` of each named call, timed in turns (A, B, B, A) and
+    averaged: host-bound calls drift with the host between moments."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(cuda_ms(fns[name], iters))
+    return {name: sum(t) / len(t) for name, t in times.items()}
 
 
 def device_ms(fn, kernel, calls: int = 200, per_call: int = 1,
@@ -194,7 +211,66 @@ def check_kernels(route_accumulate, cms_update, ref, dev) -> dict:
         want = ref.cms_update(sketch.clone(), eff, cols, val)
         got = cms_update(sketch.clone(), eff, cols, val)
         compare("cms_update", got, want, exact=dtype == torch.int32)
+        # one key: every tuple adds to the same 4 cells of PE 7; integer
+        # values, so float sums are exact in any order
+        one = torch.full((t,), 7, dtype=torch.int32, device=dev)
+        cols_one = cols[:1].expand(t, depth).contiguous()
+        val = torch.from_numpy(rng.integers(0, 100, t)).to(dev, dtype)
+        want = ref.cms_update(sketch.clone(), one, cols_one, val)
+        got = cms_update(sketch.clone(), one, cols_one, val)
+        compare("cms_update", got, want, exact=True)
     return err
+
+
+def chunk_inputs(spec, tuples, num_sec: int, dev):
+    """eff, idx, value of the first chunk of ``tuples`` as the executor
+    routes it (M = 16 PriPEs, ``num_sec`` SecPEs) under the plan that
+    chunk's profile gives."""
+    from repro_torch.core import mapper
+    from repro_torch.core.executor import make_static_plan
+    from repro_torch.core.profiler import workload_hist
+    chunk = torch.as_tensor(tuples[:CHUNK], device=dev)
+    dst, idx, value = spec.pre(chunk, 16)
+    plan = make_static_plan(16, num_sec, workload_hist(dst, 16), device=dev)
+    rank, _ = mapper.occurrence_rank(dst, 16, torch.zeros(16, dtype=torch.int32, device=dev))
+    return mapper.redirect(plan, dst, rank), idx.contiguous(), value
+
+
+def cms_host_pieces(sketch, eff, cols, val) -> dict:
+    """Host ms of each piece of one cms_update call, each alone over many
+    calls (host_ms): the wrapper's input checks, the stream lookup it makes
+    (and torch.cuda.current_stream's, which it replaced), the four data
+    pointers, the launch through the source's extension module (and the
+    same C entry through ctypes, which it replaced), the whole wrapper, the
+    dispatch entry point the executor calls, and the three no-op dtype
+    conversions that entry point made before."""
+    import ctypes
+
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import cms_update as mod
+    index, n, num_pe, depth, width, is_float = mod._check(sketch, eff, cols, val)
+    entry = mod._entry()
+    by_ctypes = _build.load("cms_update").cms_update
+    by_ctypes.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    by_ctypes.restype = ctypes.c_int
+    raw = torch._C._cuda_getCurrentRawStream
+    args = (*(t.data_ptr() for t in (sketch, eff, cols, val)), n, num_pe, depth, width,
+            is_float, raw(index))
+    calls = 2000
+    return {
+        "checks_ms": host_ms(lambda: mod._check(sketch, eff, cols, val), calls),
+        "stream_ms": host_ms(lambda: raw(index), calls),
+        "current_stream_ms": host_ms(
+            lambda: torch.cuda.current_stream(sketch.device).cuda_stream, calls),
+        "data_ptrs_ms": host_ms(lambda: [t.data_ptr() for t in (sketch, eff, cols, val)],
+                                calls),
+        "launch_call_ms": host_ms(lambda: entry(*args), calls),
+        "ctypes_launch_call_ms": host_ms(lambda: by_ctypes(*args), calls),
+        "wrapper_ms": host_ms(lambda: mod.cms_update(sketch, eff, cols, val), calls),
+        "dispatch_ms": host_ms(lambda: dispatch.cms_update(sketch, eff, cols, val), calls),
+        "noop_conversions_ms": host_ms(
+            lambda: (eff.to(torch.int32).contiguous(), cols.to(torch.int32).contiguous(),
+                     val.to(sketch.dtype).contiguous()), calls)}
 
 
 def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
@@ -302,17 +378,20 @@ def check_lm_kernels(dev) -> dict:
                 for gt in (gate, None):
                     compare("onehot_combine", dispatch.onehot_combine(e, s, packed, gt),
                             ref.onehot_combine(e, s, packed, gt), 0)
-    b, h, dh = 4, 16, 128
-    for sl in (1024, 1000):
-        for kvh in (16, 4):
-            for window in (0, 256):
-                for dtype, tol in floats:
-                    q = torch.randn((b, sl, h, dh), generator=gen, device=dev).to(dtype)
-                    k, v = (torch.randn((b, sl, kvh, dh), generator=gen, device=dev)
-                            .to(dtype) for _ in range(2))
-                    compare("flash_attention",
-                            dispatch.flash_attention(q, k, v, causal=True, window=window),
-                            ref.flash_attention(q, k, v, causal=True, window=window), tol)
+    # (S, KV heads, dh, window, q scale) at B = 4, H = 16: the prefill shape
+    # and its variants, other head dims, one query, and a moving running max
+    flash = [(sl, kvh, 128, window, 1) for sl in (1024, 1000) for kvh in (16, 4)
+             for window in (0, 256)]
+    flash += [(1024, 16, 64, 0, 1), (1024, 16, 256, 0, 1), (1, 16, 128, 0, 1),
+              (1024, 16, 128, 0, 8)]
+    for sl, kvh, dh, window, q_scale in flash:
+        for dtype, tol in floats:
+            q = (q_scale * torch.randn((4, sl, 16, dh), generator=gen, device=dev)).to(dtype)
+            k, v = (torch.randn((4, sl, kvh, dh), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            compare("flash_attention",
+                    dispatch.flash_attention(q, k, v, causal=True, window=window),
+                    ref.flash_attention(q, k, v, causal=True, window=window), tol)
     return err
 
 
@@ -480,6 +559,8 @@ def profile_lm(model, params, tokens, engine) -> dict:
             "host_aten_ops_per_call": sum(
                 e.count for e in events if e.device_type == DeviceType.CPU
                 and e.key.startswith("aten::")) / calls,
+            "flash_attention_ms_per_call": 1e-3 * sum(
+                e.self_device_time_total for e in kernels if "flash_" in e.key) / calls,
             "top_kernels_ms_per_call": {e.key[:80]: 1e-3 * e.self_device_time_total / calls
                                         for e in top}}
     out["decode_step"]["slots"] = LOAD_SLOTS
@@ -620,18 +701,24 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
     b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                           4 * dh * pairs, BF16_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fn32 = lambda: dispatch.flash_attention(q32, k32, v32, **kw)
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "launches": counts["flash_attention"], "max_abs_err": max_err["flash_attention"],
-        "ms": cuda_ms(fn, iters=20), "device_ms": device_ms(fn, "flash_kernel", calls=20),
+        "ms": cuda_ms(fn, iters=50),
+        "device_ms": device_ms(fn, "flash_bf16_kernel", calls=50),
+        "ms_float32": cuda_ms(fn32, iters=10),
+        "device_ms_float32": device_ms(fn32, "flash_kernel", calls=10),
         "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=10),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters=20),
         "shape": f"prefill layer 0: B={b} S={sq} H={h} KV={k.shape[2]} dh={dh} causal "
-                 f"{str(q.dtype).removeprefix('torch.')}, {pairs} (q, k) pairs",
+                 f"{str(q.dtype).removeprefix('torch.')}, {pairs} (q, k) pairs; "
+                 "ms_float32 on float32 copies (CUDA cores)",
         "library_call": "F.scaled_dot_product_attention(is_causal=True)"})
     out[-1]["kernel_ms"] = out[-1]["ms"]
     return out
@@ -648,8 +735,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.apps import hhd, histo, hll
-    from repro_torch.core import Ditto, mapper
-    from repro_torch.core.executor import make_static_plan
+    from repro_torch.core import Ditto
     from repro_torch.core.profiler import workload_hist
     from repro_torch.core.scheduler import schedule_secpes
     from repro_torch.core.types import ExecStats
@@ -753,15 +839,6 @@ def main() -> int:
           "ExecStats field identical")
 
     # ---- 5. kernel times at the main path's shapes
-    def main_path_inputs(spec, tuples, num_sec):
-        """eff, idx, value of one chunk as the executor routes it under
-        the plan its first chunk's profile gives."""
-        chunk = torch.as_tensor(tuples[:CHUNK], device=dev)
-        dst, idx, value = spec.pre(chunk, 16)
-        plan = make_static_plan(16, num_sec, workload_hist(dst, 16), device=dev)
-        rank, _ = mapper.occurrence_rank(dst, 16, torch.zeros(16, dtype=torch.int32, device=dev))
-        return mapper.redirect(plan, dst, rank), idx.contiguous(), value
-
     def route_bound(buf, eff, idx):
         """Bytes: 12 per tuple, plus a read and a write of each cell this
         chunk's valid tuples touch.  Operations: one fold per valid tuple."""
@@ -772,17 +849,18 @@ def main() -> int:
 
     kernels = []
     hspec = hll.make_spec(12, 16)
-    eff, idx, val = main_path_inputs(hspec, stream_hll, picked["hll_a3_ragged"])
+    eff, idx, val = chunk_inputs(hspec, stream_hll, picked["hll_a3_ragged"], dev)
     num_pe = 16 + picked["hll_a3_ragged"]
     buf = hspec.init_buffer(num_pe, dev)
     local = buf.shape[1]
     flat = (eff.long() * local + idx.long())
     lib_buf = buf.clone().view(-1)
     fn = lambda: route_accumulate(buf, eff, idx, val, "max")
-    ms = cuda_ms(fn)
+    turns = cuda_ms_turns({"kernel": fn, "library": lambda: lib_buf.scatter_reduce_(
+        0, flat, val, "amax")})
+    ms, lib_ms = turns["kernel"], turns["library"]
     dev_ms = device_ms(fn, "route_accumulate_")
     plain_ms = cuda_ms(lambda: ref.pe_buffer_update(buf, eff, idx, val, "max"))
-    lib_ms = cuda_ms(lambda: lib_buf.scatter_reduce_(0, flat, val, "amax"))
     b_ms, b_by = route_bound(buf, eff, idx)
     kernels.append({
         "name": "route_accumulate", "route": "cuda",
@@ -796,7 +874,7 @@ def main() -> int:
         "library_call": "scatter_reduce_(amax) on precomputed flat indices"})
 
     cspec = hhd.make_spec(4, 1024, 16)
-    eff, cols, val = main_path_inputs(cspec, stream_3, picked["hhd_a3"])
+    eff, cols, val = chunk_inputs(cspec, stream_3, picked["hhd_a3"], dev)
     num_pe = 16 + picked["hhd_a3"]
     sketch = cspec.init_buffer(num_pe, dev)
     rows = torch.arange(4, device=dev)
@@ -804,10 +882,18 @@ def main() -> int:
     vals = val[:, None].expand(-1, 4).reshape(-1).contiguous()
     lib_sketch = sketch.clone().view(-1)
     fn = lambda: cms_update(sketch, eff, cols, val)
-    ms = cuda_ms(fn)
+    turns = cuda_ms_turns({"kernel": fn,
+                           "library": lambda: lib_sketch.index_add_(0, flat, vals)})
+    ms, lib_ms = turns["kernel"], turns["library"]
     dev_ms = device_ms(fn, "cms_update_kernel")
+    # the same update on an alpha-0 chunk (no hot cell), under the X that
+    # Ditto picks for the alpha-0 stream
+    x0 = Ditto(cspec, chunk_size=CHUNK, device=dev).select(stream_0[:, 0])
+    eff0, cols0, val0 = chunk_inputs(cspec, stream_0, x0, dev)
+    sketch0 = cspec.init_buffer(16 + x0, dev)
+    dev_ms_a0 = device_ms(lambda: cms_update(sketch0, eff0, cols0, val0), "cms_update_kernel")
+    print("cms_update_host", json.dumps(cms_host_pieces(sketch, eff, cols, val)))
     plain_ms = cuda_ms(lambda: ref.cms_update(sketch, eff, cols, val))
-    lib_ms = cuda_ms(lambda: lib_sketch.index_add_(0, flat, vals))
     # bytes: eff, 4 columns and the value of each tuple, plus a read and a
     # write of each cell the valid tuples touch; one add per touched row
     ok = (eff >= 0) & (eff < num_pe)
@@ -821,7 +907,9 @@ def main() -> int:
         "max_abs_err": max_err["cms_update"],
         "ms": ms, "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "shape": f"HHD alpha=3 chunk: T={CHUNK} int32 into [{num_pe}, 4, 1024]",
+        "device_ms_alpha0": dev_ms_a0,
+        "shape": f"HHD alpha=3 chunk: T={CHUNK} int32 into [{num_pe}, 4, 1024]; "
+                 f"device_ms_alpha0 at an alpha=0 chunk into [{16 + x0}, 4, 1024]",
         "library_call": "index_add_ on precomputed flat indices"})
 
     # ---- 6. where the time of a chunk goes: card time and host ops per

@@ -2,12 +2,14 @@
 
 Replaces ``src/repro/kernels/cms_update.py::cms_update``, HHD's PE update.
 It is bound by bytes (4 + 4*depth + 4 B a tuple plus one read and one write
-of each sketch cell touched) and, at the executor's chunk sizes, by its launch.  The plain
-version is ``ref.cms_update``.
+of each sketch cell touched) and, at the executor's chunk sizes, by the
+host time of its call, so the wrapper keeps that path short: one combined
+test of every input (the message is worked out only when it fails), the
+raw stream handle, and a call into the source's CPython extension module in
+place of ctypes.  The plain version is ``ref.cms_update``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -15,14 +17,59 @@ import torch
 from repro_torch.kernels import _build
 
 _IS_FLOAT = {torch.int32: 0, torch.float32: 1}
+_INT32 = torch.int32
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("cms_update").cms_update
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entry(defines: tuple[str, ...] = ()):
+    """The launch: the source's extension-module function, which takes the
+    four pointers, n, num_pe, depth, width, is_float and the stream as ints
+    and returns the CUDA error."""
+    return _build.load_module("cms_update", defines).cms_update
+
+
+def _bad_input(sketch, eff, cols, value, n, depth) -> ValueError:
+    """The error for inputs that failed the combined test in ``_check``."""
+    for name, t, dtype, shape in (
+            ("eff", eff, torch.int32, (n,)),
+            ("cols", cols, torch.int32, (n, depth)),
+            ("value", value, sketch.dtype, (n,))):
+        if t.device != sketch.device or t.dtype != dtype or t.shape != shape:
+            return ValueError(f"{name} must be {list(shape)} {dtype} on "
+                              f"{sketch.device}, got {tuple(t.shape)} {t.dtype} "
+                              f"on {t.device}")
+    for name, t in (("sketch", sketch), ("eff", eff), ("cols", cols),
+                    ("value", value)):
+        if not t.is_contiguous():
+            return ValueError(f"{name} must be contiguous")
+    return ValueError("cms_update takes fewer than 2**31 cells and tuples")
+
+
+def _check(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
+           value: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    """(device index, n, num_pe, depth, width, is_float) of valid inputs;
+    raises ValueError on anything the kernel does not take."""
+    if not sketch.is_cuda:
+        raise ValueError(f"cms_update runs on CUDA tensors, got {sketch.device}")
+    dtype = sketch.dtype
+    is_float = _IS_FLOAT.get(dtype)
+    shape = sketch.shape
+    if is_float is None or len(shape) != 3:
+        raise ValueError(f"sketch must be 3-D int32|float32, got "
+                         f"{tuple(shape)} {dtype}")
+    num_pe, depth, width = shape
+    n = eff.numel()
+    index = sketch.get_device()
+    if (eff.dtype is not _INT32 or cols.dtype is not _INT32 or value.dtype is not dtype
+            or eff.get_device() != index or cols.get_device() != index
+            or value.get_device() != index
+            or eff.dim() != 1 or value.dim() != 1 or value.numel() != n
+            or cols.shape != (n, depth)
+            or not (sketch.is_contiguous() and eff.is_contiguous()
+                    and cols.is_contiguous() and value.is_contiguous())
+            or num_pe * depth * width >= 2**31 or n >= 2**31):
+        raise _bad_input(sketch, eff, cols, value, n, depth)
+    return index, n, num_pe, depth, width, is_float
 
 
 def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
@@ -34,34 +81,14 @@ def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
     device.  eff: [T] int32; cols: [T, depth] int32; value: [T] of the
     sketch's dtype; all contiguous on the same device.  Tuples with eff
     outside [0, num_pe) or a column outside [0, width) are dropped.  Raises
-    on any other input, and if the launch fails."""
-    if sketch.device.type != "cuda":
-        raise ValueError(f"cms_update runs on CUDA tensors, got {sketch.device}")
-    if sketch.dim() != 3 or sketch.dtype not in _IS_FLOAT:
-        raise ValueError(f"sketch must be 3-D int32|float32, got "
-                         f"{tuple(sketch.shape)} {sketch.dtype}")
-    num_pe, depth, width = sketch.shape
-    n = eff.shape[0]
-    for name, t, dtype, shape in (
-            ("eff", eff, torch.int32, (n,)),
-            ("cols", cols, torch.int32, (n, depth)),
-            ("value", value, sketch.dtype, (n,))):
-        if t.device != sketch.device or t.dtype != dtype or t.shape != shape:
-            raise ValueError(f"{name} must be {list(shape)} {dtype} on "
-                             f"{sketch.device}, got {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}")
-    for name, t in (("sketch", sketch), ("eff", eff), ("cols", cols),
-                    ("value", value)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if sketch.numel() >= 2**31 or n >= 2**31:
-        raise ValueError("cms_update takes fewer than 2**31 cells and tuples")
+    on any other input, and if the launch fails.  Launches on the device's
+    current stream (``torch.cuda.stream`` contexts included)."""
+    index, n, num_pe, depth, width, is_float = _check(sketch, eff, cols, value)
     if n == 0:
         return sketch
     err = _entry()(sketch.data_ptr(), eff.data_ptr(), cols.data_ptr(),
-                   value.data_ptr(), n, num_pe, depth, width,
-                   _IS_FLOAT[sketch.dtype],
-                   torch.cuda.current_stream(sketch.device).cuda_stream)
+                   value.data_ptr(), n, num_pe, depth, width, is_float,
+                   torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"cms_update launch failed: CUDA error {err}")
     cms_update.launches += 1

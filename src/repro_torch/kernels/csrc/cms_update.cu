@@ -9,33 +9,109 @@
 // is dropped by an explicit range check.
 //
 // Bound: bytes.  A tuple reads 4 (eff) + 4*depth (cols) + 4 (value) bytes and
-// each sketch cell the chunk touches is read and written once.  HHD's sketch (31 x 4 x 1024 int32,
-// ~0.5 MB) does not fit in one block's shared memory, so it lives in the
-// 50 MB L2 and takes global atomics: one thread per (tuple, row).  At the
-// executor's chunk of 4096 tuples the launch costs more than the bytes.
+// each sketch cell the chunk touches is read and written once.  HHD's sketch
+// (31 x 4 x 1024 int32, ~0.5 MB) does not fit in one block's shared memory,
+// so it lives in the 50 MB L2 and takes global atomics.  At the executor's
+// chunk of 4096 tuples the call's host time costs far more than the card's
+// (the wrapper keeps that path short).  On the card, skew is what costs: at
+// Zipf alpha = 3 a share 1/zeta(3) ~ 0.83 of the tuples carry the hottest
+// key, so the hot PE and its SecPEs take hundreds of same-address atomics a
+// chunk on the same few cells -- but Ditto's redirection spreads them:
+// with X = 14 SecPEs the hot key's tuples round-robin over 15 PEs, 15
+// different cells in each row, so a warp of 32 tuples holds about 2 per
+// cell.
+// The design:
+//   - one thread per tuple, grid-stride by whole warps; with depth 4 it
+//     loads its columns with one 16-byte load (a plain loop otherwise), and
+//     does no 64-bit division;
+//   - one global atomicAdd per (tuple, row).  Warp-aggregated atomics
+//     (CMS_AGGREGATE=1: lanes whose flat cell index matches under
+//     __match_any_sync sum their values with __reduce_add_sync, or a shuffle
+//     loop for float32, and the lowest lane adds the sum) measured slower on
+//     an H100 at both alpha = 3 and alpha = 0 (PERF.md), so they are a
+//     build-time variant that tools/kernel_variants.py times, off by default.
+// int32 adds commute, so the result is bit-exact; float32 sums in another
+// order than the plain version.
+//
+// Binding: besides the plain C entry, the library is a CPython extension
+// module (cms_update, one METH_FASTCALL function taking the same ten ints).
+// At 4096 tuples a call is all host time, and a ctypes call costs ~2 us more
+// than the launch itself on an H100's host (PERF.md); the module needs only
+// Python.h, so the build stays seconds long.
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#ifndef CMS_AGGREGATE
+#define CMS_AGGREGATE 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Sum of `x` over the lanes of `group` (the lanes that share a cell).
+__device__ __forceinline__ int group_sum(unsigned group, int x) {
+  return __reduce_add_sync(group, x);
+}
+__device__ __forceinline__ float group_sum(unsigned group, float x) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {             // every lane takes part in every shuffle
+    const float y = __shfl_sync(kFull, x, j);
+    if ((group >> j) & 1u) sum += y;
+  }
+  return sum;
+}
+
+// Adds `x` to sketch[cell] for a valid cell (cell < 0: nothing).  Called by
+// all 32 lanes of the warp together.
+template <typename T>
+__device__ __forceinline__ void add_cell(T* sketch, int cell, T x, int lane) {
+#if CMS_AGGREGATE
+  const unsigned group = __match_any_sync(kFull, cell);
+  const T sum = group_sum(group, x);
+  if (cell >= 0 && lane == __ffs(group) - 1) atomicAdd(&sketch[cell], sum);
+#else
+  if (cell >= 0) atomicAdd(&sketch[cell], x);
+#endif
+}
 
 template <typename T>
-__global__ void cms_update_kernel(T* __restrict__ sketch,
-                                  const int* __restrict__ eff,
-                                  const int* __restrict__ cols,
-                                  const T* __restrict__ val, int n,
-                                  int num_pe, int depth, int width) {
-  const long long total = static_cast<long long>(n) * depth;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int t = static_cast<int>(i / depth);
-    const int d = static_cast<int>(i % depth);
-    const int e = eff[t];
-    const int c = cols[i];
-    if (e >= 0 && e < num_pe && c >= 0 && c < width)
-      atomicAdd(&sketch[(static_cast<long long>(e) * depth + d) * width + c],
-                val[t]);
+__global__ void __launch_bounds__(kThreads)
+cms_update_kernel(T* __restrict__ sketch, const int* __restrict__ eff,
+                  const int* __restrict__ cols, const T* __restrict__ val, int n,
+                  int num_pe, int depth, int width, int cols4) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  // the loop bound is the warp's, so its lanes stay together for the
+  // warp-wide intrinsics; lanes past n carry no cell
+  for (long long base = blockIdx.x * kThreads + (threadIdx.x & ~31); base < n;
+       base += stride) {
+    const long long t = base + lane;
+    const bool live = t < n;
+    const int e = live ? eff[t] : -1;
+    const bool ok = e >= 0 && e < num_pe;
+    const T x = live ? val[t] : T(0);
+    const int row0 = ok ? e * depth : 0;
+    auto cell = [&](int d, int c) {
+      return ok && c >= 0 && c < width ? (row0 + d) * width + c : -1;
+    };
+    if (cols4) {
+      const int4 c = live ? reinterpret_cast<const int4*>(cols)[t] : make_int4(0, 0, 0, 0);
+      add_cell(sketch, cell(0, c.x), x, lane);
+      add_cell(sketch, cell(1, c.y), x, lane);
+      add_cell(sketch, cell(2, c.z), x, lane);
+      add_cell(sketch, cell(3, c.w), x, lane);
+    } else {
+      const int* ct = cols + (live ? t : 0) * depth;
+      for (int d = 0; d < depth; ++d) add_cell(sketch, cell(d, live ? ct[d] : 0), x, lane);
+    }
   }
 }
 
@@ -43,21 +119,22 @@ template <typename T>
 cudaError_t launch(void* sketch, const void* eff, const void* cols,
                    const void* val, int n, int num_pe, int depth, int width,
                    cudaStream_t stream) {
-  const long long total = static_cast<long long>(n) * depth;
-  long long blocks = (total + kThreads - 1) / kThreads;
+  int blocks = (n + kThreads - 1) / kThreads;
   blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
-  cms_update_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+  const int cols4 = depth == 4 && reinterpret_cast<uintptr_t>(cols) % 16 == 0;
+  cms_update_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<T*>(sketch), static_cast<const int*>(eff),
       static_cast<const int*>(cols), static_cast<const T*>(val), n, num_pe,
-      depth, width);
+      depth, width, cols4);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // sketch: [num_pe, depth, width] int32 (is_float=0) or float32 (is_float=1),
-// updated in place.  eff: [n] int32.  cols: [n, depth] int32, row-major.
-// val: [n] of the sketch's type.  Returns the CUDA error of the launch.
+// updated in place, fewer than 2^31 cells.  eff: [n] int32.  cols: [n, depth]
+// int32, row-major.  val: [n] of the sketch's type.  Returns the CUDA error
+// of the launch.
 extern "C" int cms_update(void* sketch, const void* eff, const void* cols,
                           const void* val, int n, int num_pe, int depth,
                           int width, int is_float, void* stream) {
@@ -68,3 +145,29 @@ extern "C" int cms_update(void* sketch, const void* eff, const void* cols,
                : launch<int>(sketch, eff, cols, val, n, num_pe, depth, width, s);
   return static_cast<int>(err);
 }
+
+// cms_update.cms_update(sketch, eff, cols, val, n, num_pe, depth, width,
+// is_float, stream) -> CUDA error: the C entry above, for Python ints.
+static PyObject* py_cms_update(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 10) {
+    PyErr_SetString(PyExc_TypeError, "cms_update takes 10 ints");
+    return nullptr;
+  }
+  void* ptr[4];
+  for (int i = 0; i < 4; ++i) ptr[i] = PyLong_AsVoidPtr(args[i]);
+  int arg[5];
+  for (int i = 0; i < 5; ++i) arg[i] = static_cast<int>(PyLong_AsLong(args[4 + i]));
+  void* stream = PyLong_AsVoidPtr(args[9]);
+  if (PyErr_Occurred()) return nullptr;
+  return PyLong_FromLong(cms_update(ptr[0], ptr[1], ptr[2], ptr[3], arg[0], arg[1], arg[2],
+                                    arg[3], arg[4], stream));
+}
+
+static PyMethodDef kMethods[] = {
+    {"cms_update", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(py_cms_update)),
+     METH_FASTCALL, "Launch the count-min sketch update; returns the CUDA error."},
+    {nullptr, nullptr, 0, nullptr}};
+
+static PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "cms_update", nullptr, -1, kMethods};
+
+PyMODINIT_FUNC PyInit_cms_update(void) { return PyModule_Create(&kModule); }

@@ -9,26 +9,488 @@
 // walks the KV tiles as its last, sequential axis with (m, l, acc) resident
 // in VMEM.  Here one block owns one (b*h, q-tile) and loops over the KV
 // tiles itself, since blocks run in no order and carry nothing between them.
+// Masked probabilities are exactly 0, as in Pallas; KV tiles wholly above
+// the diagonal (causal) or wholly before the window are skipped, and the
+// epilogue writes acc / max(l, 1e-20).
 //
-// Bound: operations.  At the prefill shape (B=4, S=1024, H=16, dh=128) the
-// causal half of QK^T and PV is 17.2 GFLOP against 67 MB of bytes moved;
-// the tensor cores would bound it at ~0.02 ms.  This first kernel computes
-// in float32 on the CUDA cores (67 TFLOP/s peak), so it sits well above that
-// bound: wgmma and TMA are later work.
+// The entry routes by dtype: bfloat16 (the model's prefill) takes the
+// tensor-core kernel, float32 the CUDA-core kernel.
 //
-// Design: 256 threads as a 16 x 16 grid; a 64 x 64 (q, k) tile.  Q, K and V
-// tiles are staged in shared memory as float (rows padded by one float so
-// the K reads of a warp fall on distinct banks), and each thread owns a
-// 4 x 4 block of scores (rows ty + 16i, keys tx + 16j) and a 4 x (D/16) block
-// of the accumulator (columns tx + 16j).  Row max and row sum reduce over the
-// 16 lanes that share a row with xor shuffles.  The running m, l and acc stay
-// in float32 registers; the epilogue writes acc / max(l, 1e-20).  KV tiles
-// wholly above the diagonal (causal) or wholly before the window are skipped.
-// Masked scores are -1e30 and masked probabilities exactly 0, as in Pallas.
+// bfloat16, tensor cores (namespace tc).  Bound: operations.  At the
+// prefill shape (B=4, S=1024, H=16, dh=128, causal) QK^T and PV are 17.2
+// GFLOP against 67 MB moved: 0.017 ms at 989 TFLOP/s, 0.020 ms at 3.35 TB/s.
+// The float32 kernel below reads every element with one 2-byte load and a
+// conversion and runs FMAs at 67 TFLOP/s peak; this one keeps the data in
+// bf16 and feeds mma.sync:
+//   - a block of FLASH_BF16_WARPS = 4 warps owns 128 query rows of one
+//     (b, h): FLASH_M_TILES = 2 m-tiles of 16 rows a warp, so each K and V
+//     fragment read from shared memory feeds two mma (dh 256: one m-tile,
+//     for the registers).  The grid launches the heavy causal q-tiles first
+//     (reversed blockIdx.y) so the short diagonal tiles fill the tail;
+//   - Q, K and V move by cp.async in 16-byte pieces into shared memory laid
+//     out with an XOR swizzle of the 16-byte chunks (chunk ^ row % 8), so
+//     ldmatrix reads 8 rows of one chunk column without bank conflicts;
+//     each lane keeps four swizzled column offsets and the rest of every
+//     ldmatrix address is compile-time.  K and V tiles of 64 keys stream
+//     through a 2-stage ring (commit_group / wait_group), loading tile j+1
+//     while tile j computes;
+//   - with one m-tile a warp (FLASH_M_TILES=1, dh <= 128) Q stays in
+//     registers as mma A fragments for the whole KV loop and its shared copy
+//     borrows stage 1 of the ring; with two, the fragments would not fit
+//     beside the accumulators, and Q is read by ldmatrix each tile;
+//   - S = Q K^T by mma.sync.m16n8k16 (bf16 in, float32 accumulate), K
+//     fragments by ldmatrix; the online softmax runs in registers: a thread
+//     holds 2 rows of each m-tile, row max and row sum reduce over the quad
+//     with two xor shuffles, dh^-0.5 * log2(e) folds into one FMA before the
+//     SFU's ex2, and masks are applied only on tiles that straddle an edge.
+//     Masked scores are -inf, so their probabilities are exactly 0, and a
+//     row with no kept key yet is taken against 0 in place of its -inf max;
+//   - O += P V with P packed to bf16 A fragments straight from the score
+//     registers and V loaded by ldmatrix.trans;
+//   - the epilogue divides in float32, rounds to bf16 and stages the tile
+//     in shared memory so each store is 16 bytes and coalesced.
+// tools/kernel_variants.py times the 8-warp and one-m-tile variants against
+// this layout (PERF.md).  dh is zero-padded in shared memory to the
+// template's 64, 128 or 256.  Where dh is not a multiple of 8 or a pointer
+// is not 16-byte aligned, the same kernel loads and stores element by
+// element.
+// Numerics: a product of two bf16 values is exact in float32 and QK^T, m,
+// l and O accumulate in float32; P is rounded to bf16 before PV, the one
+// departure from the Pallas kernel's float32 math (within the bf16
+// tolerance, rtol = atol = 2e-2, that the tests hold it to).
+//
+// float32, CUDA cores (namespace f32).  256 threads as a 16 x 16 grid; a
+// 64 x 64 (q, k) tile.  Q, K and V tiles are staged in shared memory as
+// float (rows padded by one float so the K reads of a warp fall on distinct
+// banks), and each thread owns a 4 x 4 block of scores (rows ty + 16i, keys
+// tx + 16j) and a 4 x (D/16) block of the accumulator (columns tx + 16j).
+// Row max and row sum reduce over the 16 lanes that share a row with xor
+// shuffles; m, l and acc stay in float32 registers; masked scores are
+// -1e30, as in Pallas.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <limits>
+
+#ifndef FLASH_BF16_WARPS
+#define FLASH_BF16_WARPS 4
+#endif
+#ifndef FLASH_M_TILES
+#define FLASH_M_TILES 2
+#endif
+
 namespace {
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBK = 64;        // keys a tile
+constexpr int kStages = 2;     // K/V ring depth
+constexpr float kMasked = -std::numeric_limits<float>::infinity();  // exp2 -> 0
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of 16-byte chunk `c` of row `r` in a [rows][D] bf16 tile.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// The swizzled column offset of chunk 8 * blk + c7 (c7 < 8) in a row r
+// with r % 8 = mr: blk stays, the low three bits take the xor.  ldmatrix
+// lanes address rows with a fixed r % 8, so each lane keeps four such
+// offsets (c7 = 2i + b) in registers and the rest is compile-time.
+__device__ __forceinline__ int chunk_off(int c7, int mr) { return (c7 ^ mr) << 3; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] * b[16x8], bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (relative error ~2^-22; 2^-inf = +0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + kRows) of one head into a swizzled [kRows][D] tile, zero
+// past `limit` rows and past dh columns; `stride` is heads * dh.  With
+// `vec` by cp.async in 16-byte pieces (the caller commits and waits), else
+// element by element.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int r0, int limit,
+                                          int dh, bool vec) {
+  constexpr int kChunks = D / 8;
+  static_assert(kRows * kChunks % kThreads == 0, "whole passes of the block");
+  if (vec) {
+#pragma unroll
+    for (int pass = 0; pass < kRows * kChunks / kThreads; ++pass) {
+      const int i = pass * kThreads + threadIdx.x;
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      const bool full = r0 + r < limit && c * 8 < dh;
+      const bf16* from = full ? src + (r0 + r) * stride + c * 8 : src;
+      cp_async16(dst + swz<D>(r, c), from, full);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+      const int r = i / D;
+      const int c = i % D;
+      bf16 x = __float2bfloat16(0.0f);
+      if (r0 + r < limit && c < dh) x = src[(r0 + r) * stride + c];
+      dst[swz<D>(r, c >> 3) + (c & 7)] = x;
+    }
+  }
+}
+
+// Rows a block, and where Q lives: in registers for the whole KV loop where
+// it fits next to the accumulators (one m-tile a warp, dh <= 128), and then
+// its shared-memory copy is needed only before the loop and borrows stage
+// 1's K buffer.
+template <int D, int kWarps>
+struct Layout {
+  static constexpr int kMT = D <= 128 ? FLASH_M_TILES : 1;   // 16-row m-tiles a warp
+  static constexpr int kBQ = kWarps * 16 * kMT;
+  static constexpr bool kQInRegs = D <= 128 && kMT == 1;
+  static constexpr bool kQInRing = kQInRegs && kBQ <= kBK;
+  static constexpr int kSmem =
+      ((kQInRing ? 0 : kBQ) + 2 * kStages * kBK) * D * static_cast<int>(sizeof(bf16));
+};
+
+template <int D, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
+                  int sk, int heads, int kv_heads, int dh, float scale_log2,
+                  int causal, int window, int vec) {
+  using L = Layout<D, kWarps>;
+  constexpr int kMT = L::kMT;
+  constexpr int kRows = 16 * kMT;       // query rows a warp
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kChunks = D / 8;        // 16-byte chunks a row; O's n-tiles
+  constexpr int kSteps = D / 16;        // k-steps of QK^T
+  constexpr int kKeyTiles = kBK / 8;    // n-tiles of S
+  constexpr bool kQInRegs = L::kQInRegs;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* base = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = base + (L::kQInRing ? 0 : kBQ * D);  // [kStages][kBK][D]
+  bf16* vs = ks + kStages * kBK * D;              // [kStages][kBK][D]
+  bf16* qs = L::kQInRing ? ks + kBK * D : base;   // [kBQ][D]
+  bf16* os = L::kQInRing ? ks : qs;               // O staged in the epilogue
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;       // the thread's rows: g and g + 8 of each m-tile
+  const int tq = lane & 3;       // its pair of columns within each n-tile
+  const int mi = lane >> 3;      // the ldmatrix matrix this lane addresses
+  const int mr = lane & 7;       // ... and its row there, mod 8
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int kh = h / (heads / kv_heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int wr0 = warp * kRows;  // the warp's first row in the block's tile
+  const int wq0 = q0 + wr0;
+  const long long q_stride = static_cast<long long>(heads) * dh;
+  const long long kv_stride = static_cast<long long>(kv_heads) * dh;
+  const bf16* qb = q + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(h) * dh;
+  const bf16* kb = k + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(kh) * dh;
+  const bf16* vb = v + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(kh) * dh;
+  bf16* ob = o + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(h) * dh;
+
+  // ldmatrix addressing.  Q (A, rows l % 16 of an m-tile, chunks 2kk + l / 16)
+  // and K (B of Q K^T, keys 8j + mr + 8 (mi / 2), chunks 2kk + mi % 2): chunk
+  // 2kk + b = 8 (kk / 4) + 2 (kk % 4) + b.  V (B of P V through .trans,
+  // keys 16kk + mr + 8 (mi % 2), chunks j + mi / 2 for even j).
+  int qoff[4], koff[4], voff[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qoff[i] = chunk_off(2 * i + (lane >> 4), mr);
+    koff[i] = chunk_off(2 * i + (mi & 1), mr);
+    voff[i] = chunk_off(2 * i + (mi >> 1), mr);
+  }
+  const int qrow = (wr0 + (lane & 15)) * D;
+  const int krow = (mr + 8 * (mi >> 1)) * D;
+  const int vrow = (mr + 8 * (mi & 1)) * D;
+
+  const int q_last = min(q0 + kBQ, sq) - 1;
+  int kv_end = (sk + kBK - 1) / kBK;
+  if (causal) kv_end = min(kv_end, q_last / kBK + 1);
+  int kv_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kv_begin = (q0 - window + 1) / kBK;
+
+  load_tile<D, kBQ, kThreads>(qs, qb, q_stride, q0, sq, dh, vec);
+  cp_commit();
+  if (kv_begin < kv_end) {
+    load_tile<D, kBK, kThreads>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
+    load_tile<D, kBK, kThreads>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+
+  auto load_q = [&](uint32_t* a, int mt, int kk) {
+    ldsm_x4(a, qs + qrow + 16 * mt * D + ((kk >> 2) << 6) + qoff[kk & 3]);
+  };
+  uint32_t qf[kQInRegs ? kSteps : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) load_q(qf[kk], 0, kk);
+    if constexpr (L::kQInRing) __syncthreads();  // stage 1 is refilled below
+  }
+
+  float acc[kMT][kChunks][4];
+  float m[kMT][2], l[kMT][2];         // m in log2 units; l: this thread's share
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
+    m[mt][0] = m[mt][1] = kMasked;
+    l[mt][0] = l[mt][1] = 0.0f;
+  }
+
+  for (int tile = kv_begin, it = 0; tile < kv_end; ++tile, ++it) {
+    // prefetch the next tile into the stage the previous tile freed
+    if (tile + 1 < kv_end) {
+      const int ns = (it + 1) % kStages;
+      load_tile<D, kBK, kThreads>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk,
+                                  dh, vec);
+      load_tile<D, kBK, kThreads>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk,
+                                  dh, vec);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+
+    const int k0 = tile * kBK;
+    const bf16* kt = ks + (it % kStages) * kBK * D + krow;
+    const bf16* vt = vs + (it % kStages) * kBK * D + vrow;
+    // a warp whose rows keep no key of this tile only waits at the barriers
+    const bool live = !(causal && k0 > wq0 + kRows - 1) &&
+                      !(window > 0 && k0 + kBK - 1 <= wq0 - window);
+    if (live) {
+      float s[kMT][kKeyTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j)
+          s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t a[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if constexpr (kQInRegs) {
+            a[mt][0] = qf[kk][0]; a[mt][1] = qf[kk][1];
+            a[mt][2] = qf[kk][2]; a[mt][3] = qf[kk][3];
+          } else {
+            load_q(a[mt], mt, kk);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; j += 2) {
+          uint32_t bk[4];
+          ldsm_x4(bk, kt + 8 * j * D + ((kk >> 2) << 6) + koff[kk & 3]);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma(s[mt][j], a[mt], bk[0], bk[1]);
+            mma(s[mt][j + 1], a[mt], bk[2], bk[3]);
+          }
+        }
+      }
+
+      // masks only where the tile straddles an edge of some row's range
+      const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > wq0) ||
+                        (window > 0 && k0 <= wq0 + kRows - 1 - window);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        float mx[2] = {kMasked, kMasked};
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (edge) {
+              const int qp = wq0 + 16 * mt + g + 8 * (e >> 1);
+              const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+              if (!(kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window)))
+                s[mt][j][e] = kMasked;
+            }
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+          }
+        }
+        // a row with no kept key yet has m = -inf and is taken against 0,
+        // so its probabilities are exp2(-inf) = 0
+        float base_m[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[mt][r], mx[r] * scale_log2);
+          base_m[r] = m_new == kMasked ? 0.0f : m_new;
+          const float alpha = exp2_approx(m[mt][r] - base_m[r]);
+          m[mt][r] = m_new;
+          l[mt][r] *= alpha;
+#pragma unroll
+          for (int j = 0; j < kChunks; ++j) {
+            acc[mt][j][2 * r] *= alpha;
+            acc[mt][j][2 * r + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_approx(fmaf(s[mt][j][e], scale_log2, -base_m[e >> 1]));
+            s[mt][j][e] = p;
+            l[mt][e >> 1] += p;
+          }
+        }
+      }
+
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // P's A fragment for keys 16kk..+15 is S's n-tiles 2kk and 2kk+1
+        uint32_t a[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < kChunks; j += 2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vt + 16 * kk * D + ((j >> 3) << 6) + voff[(j & 7) >> 1]);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma(acc[mt][j], a[mt], bv[0], bv[1]);
+            mma(acc[mt][j + 1], a[mt], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // epilogue: O / max(l, 1e-20) in float32, rounded to bf16, staged in the
+  // warp's own rows of os, then written out 16 bytes at a time
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mt][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = 1.0f / fmaxf(sum, 1e-20f);
+    }
+    const int row = wr0 + 16 * mt + g;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      *reinterpret_cast<uint32_t*>(os + swz<D>(row, j) + 2 * tq) =
+          pack_bf16(acc[mt][j][0] * inv[0], acc[mt][j][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(os + swz<D>(row + 8, j) + 2 * tq) =
+          pack_bf16(acc[mt][j][2] * inv[1], acc[mt][j][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  if (vec) {
+#pragma unroll
+    for (int i = lane; i < kRows * kChunks; i += 32) {
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      if (wq0 + r < sq && c * 8 < dh)
+        *reinterpret_cast<int4*>(ob + (wq0 + r) * q_stride + c * 8) =
+            *reinterpret_cast<const int4*>(os + swz<D>(wr0 + r, c));
+    }
+  } else {
+    for (int i = lane; i < kRows * D; i += 32) {
+      const int r = i / D;
+      const int c = i % D;
+      if (wq0 + r < sq && c < dh)
+        ob[(wq0 + r) * q_stride + c] = os[swz<D>(wr0 + r, c >> 3) + (c & 7)];
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
+                   int sq, int sk, int heads, int kv_heads, int dh, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  constexpr int kWarps = FLASH_BF16_WARPS;
+  using L = Layout<D, kWarps>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<D, kWarps>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const int vec = dh % 8 == 0 && any % 16 == 0;
+  const dim3 grid(b * heads, (sq + L::kBQ - 1) / L::kBQ);
+  flash_bf16_kernel<D, kWarps><<<grid, kWarps * 32, L::kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), sq, sk, heads, kv_heads, dh, scale * kLog2e, causal, window,
+      vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int b,
+                      int sq, int sk, int heads, int kv_heads, int dh, float scale,
+                      int causal, int window, cudaStream_t stream) {
+  if (dh <= 64)
+    return launch<64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
+                      stream);
+  if (dh <= 128)
+    return launch<128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
+                       stream);
+  return launch<256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
+                     stream);
+}
+
+}  // namespace tc
+
+namespace f32 {
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -36,11 +498,7 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_float(float* out, float v) { *out = v; }
-__device__ __forceinline__ void store_float(__nv_bfloat16* out, float v) {
-  *out = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -229,11 +687,14 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int 
                         window, stream);
 }
 
+}  // namespace f32
+
 }  // namespace
 
 // q, o: [b, sq, heads, dh]; k, v: [b, sk, kv_heads, dh], all contiguous, of
-// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); dh <= 256; heads a
-// multiple of kv_heads; window <= 0 means none.  Returns the CUDA error.
+// float32 (is_bf16 = 0: CUDA cores) or bfloat16 (is_bf16 = 1: tensor
+// cores); dh <= 256; heads a multiple of kv_heads; window <= 0 means none.
+// Returns the CUDA error.
 extern "C" int flash_attention(void* o, const void* q, const void* k, const void* v,
                                int b, int sq, int sk, int heads, int kv_heads,
                                int dh, float scale, int causal, int window,
@@ -241,9 +702,9 @@ extern "C" int flash_attention(void* o, const void* q, const void* k, const void
   if (b <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, b, sq, sk, heads, kv_heads, dh,
-                                         scale, causal, window, s)
-              : launch_dh<float>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale,
-                                 causal, window, s);
+      is_bf16 ? tc::launch_dh(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                              window, s)
+              : f32::launch_dh<float>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale,
+                                      causal, window, s);
   return static_cast<int>(err);
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels.route_accumulate import route_accumulate as _route_cuda
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -57,12 +57,12 @@ def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
                value: torch.Tensor) -> torch.Tensor:
     """Count-min sketch update in place: ``sketch[eff[t], d, cols[t, d]] +=
     value[t]``; sketch [num_pe, depth, width]; eff outside [0, num_pe) is
-    dropped.  Returns ``sketch``."""
+    dropped.  Returns ``sketch``.  On the card the tensors go to the kernel
+    as they are (HHD's PrePE hands over int32): eff and cols int32 and
+    value of the sketch's dtype, contiguous, or the kernel wrapper raises."""
     if not _on_cuda(sketch):
         return ref.cms_update(sketch, eff, cols, value)
-    return _cms_cuda(sketch, eff.to(torch.int32).contiguous(),
-                     cols.to(torch.int32).contiguous(),
-                     value.to(sketch.dtype).contiguous())
+    return _cms_cuda(sketch, eff, cols, value)
 
 
 def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,

@@ -2,9 +2,10 @@
 (``csrc/flash_attention.cu``).
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention``.  Bound
-by operations at the prefill shape; this first kernel runs float32 FMAs on
-the CUDA cores (the source says why and what comes later).  The plain
-version is ``ref.flash_attention``.
+by operations at the prefill shape.  bfloat16 inputs (the model's prefill)
+run on the tensor cores (bf16 ``mma.sync``, a ``cp.async`` ring); float32
+inputs keep float32 FMAs on the CUDA cores.  The source says how each is
+laid out.  The plain version is ``ref.flash_attention``.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ MAX_HEAD_DIM = 256
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("flash_attention").flash_attention
+def _entry(defines: tuple[str, ...] = ()):
+    fn = _build.load("flash_attention", defines).flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -38,7 +39,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     j > i - window; head j reads KV head j // (H / KV).  All three tensors
     float32|bfloat16 of one dtype, contiguous, on one CUDA device; dh <= 256.
     Raises for ``softcap`` != 0 (the Pallas kernel has none either), on any
-    other input, and if the launch fails."""
+    other input, and if the launch fails.  bfloat16 runs on the tensor
+    cores and rounds the probabilities to bf16 before P @ V; float32 runs
+    in float32 throughout."""
     if softcap:
         raise ValueError("flash_attention has no logit soft-capping")
     if q.device.type != "cuda":

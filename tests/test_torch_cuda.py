@@ -12,7 +12,8 @@ atomics and ``index_add_`` round each partial sum in another order, so a
 cell's error scales with the sum of |x| that went into it, not with the
 result: |got - want| <= tol * (1 + that sum), cell by cell, with tol 1e-5
 (float32) or 2e-2 (bfloat16).  Flash attention within 1e-5 (float32) or
-2e-2 (bfloat16), as in tests/test_kernels.py.
+2e-2 (bfloat16), as in tests/test_kernels.py; the bfloat16 kernel also
+rounds the probabilities to bf16 before P @ V, which that tolerance covers.
 """
 import numpy as np
 import pytest
@@ -87,19 +88,78 @@ def test_route_accumulate_single_hot_cell(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_cms_update_vs_plain(cuda_device, dtype):
+@pytest.mark.parametrize("case", ["random", "one_key", "depth3", "depth5"])
+def test_cms_update_vs_plain(cuda_device, case, dtype):
+    """HHD's shape with -1 padding and the sentinel eff = num_pe (random);
+    a chunk whose tuples all carry one key, so every lane of a warp adds
+    to the same cells (one_key; integer values, so float sums are exact in
+    any order); and depths 3 and 5, which take the kernel's column loop in
+    place of its 16-byte load."""
     rng = np.random.default_rng(3)
-    t, pe, d, w = 4096, 31, 4, 1024
+    t, pe, w = 4096, 31, 1024
+    d = {"depth3": 3, "depth5": 5}.get(case, 4)
     eff = torch.from_numpy(rng.integers(-1, pe + 1, t).astype(np.int32))
     cols = torch.from_numpy(rng.integers(0, w, (t, d)).astype(np.int32))
     val = _values(rng, t, dtype, signed=False)
+    if case == "one_key":
+        eff[:] = 7
+        cols[:] = cols[0]
+        val = torch.from_numpy(rng.integers(0, 100, t)).to(DTYPES[dtype])
     sketch = torch.zeros((pe, d, w), dtype=DTYPES[dtype])
     want = ref.cms_update(sketch.clone(), eff, cols, val)
     before = cms_update.launches
     got = dispatch.cms_update(sketch.to(cuda_device), eff.to(cuda_device),
                               cols.to(cuda_device), val.to(cuda_device))
     assert cms_update.launches == before + 1
-    _assert_same(got, want, exact=dtype == "int32")
+    _assert_same(got, want, exact=dtype == "int32" or case == "one_key")
+
+
+@pytest.mark.cuda
+def test_cms_update_launches_on_the_current_stream(cuda_device):
+    """Captured into a CUDA graph (which records only the capturing
+    stream's work), the update runs once per replay."""
+    rng = np.random.default_rng(5)
+    t, pe, d, w = 4096, 31, 4, 1024
+    eff = torch.from_numpy(rng.integers(-1, pe + 1, t).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, w, (t, d)).astype(np.int32))
+    val = torch.ones(t, dtype=torch.int32)
+    want = ref.cms_update(torch.zeros((pe, d, w), dtype=torch.int32), eff, cols, val)
+    sketch = torch.zeros((pe, d, w), dtype=torch.int32, device=cuda_device)
+    eff, cols, val = eff.to(cuda_device), cols.to(cuda_device), val.to(cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cms_update(sketch, eff, cols, val)
+    torch.cuda.synchronize()
+    assert int(sketch.abs().sum()) == 0
+    graph.replay()
+    graph.replay()
+    _assert_same(sketch, 2 * want, exact=True)
+
+
+@pytest.mark.cuda
+def test_cms_update_raises_on_what_it_does_not_take(cuda_device):
+    """Without the dispatch layer's conversions, a wrong dtype, device,
+    shape or layout reaches the wrapper, which raises; nothing launches."""
+    sketch = torch.zeros((3, 4, 16), dtype=torch.int32, device=cuda_device)
+    eff = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    cols = torch.zeros((8, 4), dtype=torch.int32, device=cuda_device)
+    val = torch.ones(8, dtype=torch.int32, device=cuda_device)
+    before = cms_update.launches
+    with pytest.raises(ValueError, match="eff must be"):
+        dispatch.cms_update(sketch, eff.long(), cols, val)
+    with pytest.raises(ValueError, match="cols must be"):
+        cms_update(sketch, eff, cols[:, :3], val)
+    with pytest.raises(ValueError, match="value must be"):
+        cms_update(sketch, eff, cols, val.float())
+    with pytest.raises(ValueError, match="value must be"):
+        cms_update(sketch, eff, cols, val.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        cms_update(sketch, eff, cols.t().contiguous().t(), val)
+    with pytest.raises(ValueError, match="3-D"):
+        cms_update(sketch[0], eff, cols, val)
+    with pytest.raises(ValueError, match="CUDA"):
+        cms_update(sketch.cpu(), eff, cols, val)
+    assert cms_update.launches == before
 
 
 @pytest.mark.cuda
@@ -196,20 +256,41 @@ def test_onehot_combine_vs_plain(cuda_device, g, t, pe, cap, d, dtype, with_gate
     _close(got, want, dtype, exact=True)
 
 
+# b, sq, sk, h, kv, dh, causal, window, q_scale
+FLASH_CASES = [
+    (4, 1024, 1024, 16, 16, 128, True, 0, 1),    # moonshot's prefill
+    (4, 1000, 1000, 16, 16, 128, True, 0, 1),
+    (4, 1024, 1024, 16, 4, 128, True, 256, 1),
+    (4, 1000, 1000, 16, 4, 128, True, 256, 1),
+    (2, 77, 77, 4, 2, 64, True, 0, 1),
+    *((2, 256, 256, 4, 4, dh, True, 0, 1) for dh in (32, 64, 128, 256)),
+    *((2, s, s, 4, 1, 128, True, 0, 1) for s in (1, 17, 64, 65)),
+    (2, 100, 300, 4, 4, 64, False, 0, 1),        # Sq != Sk, no mask but padding
+    (2, 300, 100, 4, 2, 128, False, 0, 1),
+    (2, 200, 200, 4, 4, 64, False, 50, 1),
+    (2, 300, 300, 4, 1, 128, True, 40, 1),       # a window inside one key tile
+    (2, 512, 512, 8, 2, 128, True, 0, 8),        # the running max moves
+    (2, 65, 65, 4, 2, 50, True, 0, 1),           # dh not a multiple of 8
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(FLOATS))
-@pytest.mark.parametrize("s,h,kv,window", [(1024, 16, 16, 0), (1000, 16, 16, 0),
-                                           (1024, 16, 4, 256), (1000, 16, 4, 256),
-                                           (77, 4, 2, 0)])
-def test_flash_attention_vs_plain(cuda_device, s, h, kv, window, dtype):
-    """The prefill shape (B=4, S=1024, dh=128), a ragged S, GQA and a window."""
-    gen = torch.Generator(device=cuda_device).manual_seed(s + h + kv)
-    b, dh = (4, 128) if s >= 1000 else (2, 64)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(FLOATS[dtype])
-               for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
-    want = ref.flash_attention(q, k, v, causal=True, window=window)
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,q_scale", FLASH_CASES)
+def test_flash_attention_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal, window,
+                                  q_scale, dtype):
+    """The prefill shape (B=4, S=1024, dh=128), ragged S, GQA (16/4, 4/1)
+    and windows; dh 32-256; S from 1; Sq != Sk; q scaled by 8, so that the
+    running max moves and the rescale of O and l runs; dh = 50 takes the
+    element-wise loads.  bfloat16 runs on the tensor cores, float32 on the
+    CUDA cores."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + sk + h + kv + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    q, k, v = ((q * q_scale).to(FLOATS[dtype]), k.to(FLOATS[dtype]), v.to(FLOATS[dtype]))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
     before = flash_attention.launches
-    got = dispatch.flash_attention(q, k, v, causal=True, window=window)
+    got = dispatch.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
     _close(got, want, dtype, exact=False)
 
