@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the result lines):
      tensors, at the main path's shape and (route_accumulate) at a buffer
      of 2^20 bins: add/max x int32/float32, -1 padding, the
      masked sentinel eff = num_pe, negative values under max; and
-     cms_update on a chunk whose tuples all carry one key (every lane of a
-     warp aggregates onto the same cells);
+     cms_update on a chunk whose tuples all carry one key (every tuple adds
+     to the same 4 cells);
   3. drive the main path -- Ditto(spec, device="cuda") -> build (Eq. 2 on a
      0.1% sample) -> run -- over the paper's 26 * 2^20 8-byte Zipf tuples in
      chunks of 4096 with M = 16 PriPEs: HISTO at alpha 0 and 3, HLL at

@@ -8,10 +8,7 @@ same name (Python.h only), loaded with ``load_module``.  Builds land in
 ``build/repro_torch/`` at the repository root, named by a hash of the source
 and the flags, so an edited source is never served from a stale library.
 Nothing is built at import: the first kernel call builds what it needs, and
-``build`` compiles several sources at once (one nvcc process each).  A
-source may be built again with ``-D`` defines (a variant of one of its
-kernels, such as another block shape) into a library of its own, which is
-how ``tools/kernel_variants.py`` times variants against each other.
+``build`` compiles several sources at once (one nvcc process each).
 """
 from __future__ import annotations
 
@@ -33,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               f"-I{sysconfig.get_paths()['include']}")
 
 _lock = threading.Lock()
-_libs: dict[tuple, object] = {}
+_libs: dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -47,46 +44,40 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, Path]:
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(flags).encode()).hexdigest()[:12]
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(*names: str, variants: tuple[tuple[str, ...], ...] = ((),)) -> dict[str, str]:
+def build(*names: str) -> dict[str, str]:
     """Compile the named sources (every ``csrc/*.cu`` when none is named)
-    that are not built yet, each once for every set of ``-D`` defines in
-    ``variants`` (by default once, with none), all at once.
+    that are not built yet, all at once.
 
-    Returns each build's compiler output (the ``-Xptxas -v`` register and
-    shared-memory report; empty for a library that was already built),
-    keyed by the name, followed by its defines if it has any.  Raises
-    RuntimeError, after every nvcc has ended, if any build failed."""
+    Returns each name's compiler output (the ``-Xptxas -v`` register and
+    shared-memory report; empty for a library that was already built).
+    Raises RuntimeError, after every nvcc has ended, if any build failed."""
     names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
-    builds = {" ".join((name, *defines)): (name, defines)
-              for name in names for defines in variants}
-    logs = dict.fromkeys(builds, "")
+    logs = dict.fromkeys(names, "")
     with _lock:
         jobs = []
-        for key, (name, defines) in builds.items():
-            src, lib = _target(name, defines)
+        for name in names:
+            src, lib = _target(name)
             if lib.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
-                 str(src)],
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((key, lib, tmp, proc))
+            jobs.append((name, lib, tmp, proc))
         failed = []
-        for key, lib, tmp, proc in jobs:
+        for name, lib, tmp, proc in jobs:
             out, _ = proc.communicate()
-            logs[key] = out
+            logs[name] = out
             if proc.returncode:
-                failed.append(f"nvcc failed for {key}:\n{out}")
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
             else:
                 tmp.replace(lib)
         if failed:
@@ -94,31 +85,29 @@ def build(*names: str, variants: tuple[tuple[str, ...], ...] = ((),)) -> dict[st
         return logs
 
 
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
-    built on first use."""
-    key = (name, defines)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
     if lib is not None:
         return lib
-    build(name, variants=(defines,))
+    build(name)
     with _lock:
-        if key not in _libs:
-            _libs[key] = ctypes.CDLL(str(_target(name, defines)[1]))
-        return _libs[key]
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+        return _libs[name]
 
 
-def load_module(name: str, defines: tuple[str, ...] = ()):
-    """``csrc/<name>.cu``'s library built with ``defines`` (on first use),
-    imported as the CPython extension module ``name`` it defines."""
-    key = ("module", name, defines)
+def load_module(name: str):
+    """``csrc/<name>.cu``'s library, built on first use and imported as the
+    CPython extension module ``name`` that it defines."""
+    key = f"module {name}"
     with _lock:
         mod = _libs.get(key)
     if mod is not None:
         return mod
-    build(name, variants=(defines,))
-    path = str(_target(name, defines)[1])
+    build(name)
+    path = str(_target(name)[1])
     with _lock:
         if key not in _libs:
             loader = importlib.machinery.ExtensionFileLoader(name, path)

@@ -21,11 +21,11 @@ _INT32 = torch.int32
 
 
 @functools.cache
-def _entry(defines: tuple[str, ...] = ()):
+def _entry():
     """The launch: the source's extension-module function, which takes the
     four pointers, n, num_pe, depth, width, is_float and the stream as ints
     and returns the CUDA error."""
-    return _build.load_module("cms_update", defines).cms_update
+    return _build.load_module("cms_update").cms_update
 
 
 def _bad_input(sketch, eff, cols, value, n, depth) -> ValueError:

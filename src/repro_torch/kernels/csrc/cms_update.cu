@@ -21,15 +21,13 @@
 // different cells in each row, so a warp of 32 tuples holds about 2 per
 // cell.
 // The design:
-//   - one thread per tuple, grid-stride by whole warps; with depth 4 it
-//     loads its columns with one 16-byte load (a plain loop otherwise), and
-//     does no 64-bit division;
+//   - one thread per tuple, grid-stride; with depth 4 it loads its columns
+//     with one 16-byte load (a plain loop otherwise), and does no 64-bit
+//     division;
 //   - one global atomicAdd per (tuple, row).  Warp-aggregated atomics
-//     (CMS_AGGREGATE=1: lanes whose flat cell index matches under
-//     __match_any_sync sum their values with __reduce_add_sync, or a shuffle
-//     loop for float32, and the lowest lane adds the sum) measured slower on
-//     an H100 at both alpha = 3 and alpha = 0 (PERF.md), so they are a
-//     build-time variant that tools/kernel_variants.py times, off by default.
+//     (lanes whose flat cell index matches under __match_any_sync sum their
+//     values and the lowest lane adds the sum) measured slower on an H100
+//     at both alpha = 3 and alpha = 0 (PERF.md, PR 13), so they were left out.
 // int32 adds commute, so the result is bit-exact; float32 sums in another
 // order than the plain version.
 //
@@ -45,72 +43,34 @@
 
 #include <cstdint>
 
-#ifndef CMS_AGGREGATE
-#define CMS_AGGREGATE 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-// Sum of `x` over the lanes of `group` (the lanes that share a cell).
-__device__ __forceinline__ int group_sum(unsigned group, int x) {
-  return __reduce_add_sync(group, x);
-}
-__device__ __forceinline__ float group_sum(unsigned group, float x) {
-  float sum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {             // every lane takes part in every shuffle
-    const float y = __shfl_sync(kFull, x, j);
-    if ((group >> j) & 1u) sum += y;
-  }
-  return sum;
-}
-
-// Adds `x` to sketch[cell] for a valid cell (cell < 0: nothing).  Called by
-// all 32 lanes of the warp together.
-template <typename T>
-__device__ __forceinline__ void add_cell(T* sketch, int cell, T x, int lane) {
-#if CMS_AGGREGATE
-  const unsigned group = __match_any_sync(kFull, cell);
-  const T sum = group_sum(group, x);
-  if (cell >= 0 && lane == __ffs(group) - 1) atomicAdd(&sketch[cell], sum);
-#else
-  if (cell >= 0) atomicAdd(&sketch[cell], x);
-#endif
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cms_update_kernel(T* __restrict__ sketch, const int* __restrict__ eff,
                   const int* __restrict__ cols, const T* __restrict__ val, int n,
                   int num_pe, int depth, int width, int cols4) {
-  const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  // the loop bound is the warp's, so its lanes stay together for the
-  // warp-wide intrinsics; lanes past n carry no cell
-  for (long long base = blockIdx.x * kThreads + (threadIdx.x & ~31); base < n;
-       base += stride) {
-    const long long t = base + lane;
-    const bool live = t < n;
-    const int e = live ? eff[t] : -1;
-    const bool ok = e >= 0 && e < num_pe;
-    const T x = live ? val[t] : T(0);
-    const int row0 = ok ? e * depth : 0;
-    auto cell = [&](int d, int c) {
-      return ok && c >= 0 && c < width ? (row0 + d) * width + c : -1;
+  for (long long t = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; t < n;
+       t += stride) {
+    const int e = eff[t];
+    if (e < 0 || e >= num_pe) continue;
+    const T x = val[t];
+    const int row0 = e * depth;
+    auto add = [&](int d, int c) {
+      if (c >= 0 && c < width) atomicAdd(&sketch[(row0 + d) * width + c], x);
     };
     if (cols4) {
-      const int4 c = live ? reinterpret_cast<const int4*>(cols)[t] : make_int4(0, 0, 0, 0);
-      add_cell(sketch, cell(0, c.x), x, lane);
-      add_cell(sketch, cell(1, c.y), x, lane);
-      add_cell(sketch, cell(2, c.z), x, lane);
-      add_cell(sketch, cell(3, c.w), x, lane);
+      const int4 c = reinterpret_cast<const int4*>(cols)[t];
+      add(0, c.x);
+      add(1, c.y);
+      add(2, c.z);
+      add(3, c.w);
     } else {
-      const int* ct = cols + (live ? t : 0) * depth;
-      for (int d = 0; d < depth; ++d) add_cell(sketch, cell(d, live ? ct[d] : 0), x, lane);
+      for (int d = 0; d < depth; ++d) add(d, cols[t * depth + d]);
     }
   }
 }

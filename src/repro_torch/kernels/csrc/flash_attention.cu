@@ -22,22 +22,18 @@
 // The float32 kernel below reads every element with one 2-byte load and a
 // conversion and runs FMAs at 67 TFLOP/s peak; this one keeps the data in
 // bf16 and feeds mma.sync:
-//   - a block of FLASH_BF16_WARPS = 4 warps owns 128 query rows of one
-//     (b, h): FLASH_M_TILES = 2 m-tiles of 16 rows a warp, so each K and V
-//     fragment read from shared memory feeds two mma (dh 256: one m-tile,
-//     for the registers).  The grid launches the heavy causal q-tiles first
-//     (reversed blockIdx.y) so the short diagonal tiles fill the tail;
+//   - a block of 4 warps owns 128 query rows of one (b, h): 2 m-tiles of
+//     16 rows a warp, so each K and V fragment read from shared memory feeds
+//     two mma (dh 256: one m-tile, for the registers).  The grid launches the
+//     heavy causal q-tiles first (reversed blockIdx.y) so the short diagonal
+//     tiles fill the tail;
 //   - Q, K and V move by cp.async in 16-byte pieces into shared memory laid
 //     out with an XOR swizzle of the 16-byte chunks (chunk ^ row % 8), so
 //     ldmatrix reads 8 rows of one chunk column without bank conflicts;
 //     each lane keeps four swizzled column offsets and the rest of every
 //     ldmatrix address is compile-time.  K and V tiles of 64 keys stream
 //     through a 2-stage ring (commit_group / wait_group), loading tile j+1
-//     while tile j computes;
-//   - with one m-tile a warp (FLASH_M_TILES=1, dh <= 128) Q stays in
-//     registers as mma A fragments for the whole KV loop and its shared copy
-//     borrows stage 1 of the ring; with two, the fragments would not fit
-//     beside the accumulators, and Q is read by ldmatrix each tile;
+//     while tile j computes; Q is read by ldmatrix each tile;
 //   - S = Q K^T by mma.sync.m16n8k16 (bf16 in, float32 accumulate), K
 //     fragments by ldmatrix; the online softmax runs in registers: a thread
 //     holds 2 rows of each m-tile, row max and row sum reduce over the quad
@@ -49,11 +45,11 @@
 //     registers and V loaded by ldmatrix.trans;
 //   - the epilogue divides in float32, rounds to bf16 and stages the tile
 //     in shared memory so each store is 16 bytes and coalesced.
-// tools/kernel_variants.py times the 8-warp and one-m-tile variants against
-// this layout (PERF.md).  dh is zero-padded in shared memory to the
-// template's 64, 128 or 256.  Where dh is not a multiple of 8 or a pointer
-// is not 16-byte aligned, the same kernel loads and stores element by
-// element.
+// Measured on an H100 (PERF.md, PR 13), this layout beat 8 warps a block
+// and 1 m-tile a warp with Q held in registers as A fragments for the whole
+// KV loop.  dh is zero-padded in shared memory to the template's 64, 128 or
+// 256.  Where dh is not a multiple of 8 or a pointer is not 16-byte aligned,
+// the same kernel loads and stores element by element.
 // Numerics: a product of two bf16 values is exact in float32 and QK^T, m,
 // l and O accumulate in float32; P is rounded to bf16 before PV, the one
 // departure from the Pallas kernel's float32 math (within the bf16
@@ -73,18 +69,13 @@
 #include <cstdint>
 #include <limits>
 
-#ifndef FLASH_BF16_WARPS
-#define FLASH_BF16_WARPS 4
-#endif
-#ifndef FLASH_M_TILES
-#define FLASH_M_TILES 2
-#endif
-
 namespace {
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;      // a block
+constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 64;        // keys a tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kMasked = -std::numeric_limits<float>::infinity();  // exp2 -> 0
@@ -155,7 +146,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // past `limit` rows and past dh columns; `stride` is heads * dh.  With
 // `vec` by cp.async in 16-byte pieces (the caller commits and waits), else
 // element by element.
-template <int D, int kRows, int kThreads>
+template <int D, int kRows>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int r0, int limit,
                                           int dh, bool vec) {
@@ -182,41 +173,33 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// Rows a block, and where Q lives: in registers for the whole KV loop where
-// it fits next to the accumulators (one m-tile a warp, dh <= 128), and then
-// its shared-memory copy is needed only before the loop and borrows stage
-// 1's K buffer.
-template <int D, int kWarps>
+// Two 16-row m-tiles a warp, so each K and V fragment feeds two mma; one
+// at dh 256, where the accumulators of two would not fit in registers.
+template <int D>
 struct Layout {
-  static constexpr int kMT = D <= 128 ? FLASH_M_TILES : 1;   // 16-row m-tiles a warp
-  static constexpr int kBQ = kWarps * 16 * kMT;
-  static constexpr bool kQInRegs = D <= 128 && kMT == 1;
-  static constexpr bool kQInRing = kQInRegs && kBQ <= kBK;
+  static constexpr int kMT = D <= 128 ? 2 : 1;
+  static constexpr int kBQ = kWarps * 16 * kMT;   // query rows a block
   static constexpr int kSmem =
-      ((kQInRing ? 0 : kBQ) + 2 * kStages * kBK) * D * static_cast<int>(sizeof(bf16));
+      (kBQ + 2 * kStages * kBK) * D * static_cast<int>(sizeof(bf16));
 };
 
-template <int D, int kWarps>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
                   int sk, int heads, int kv_heads, int dh, float scale_log2,
                   int causal, int window, int vec) {
-  using L = Layout<D, kWarps>;
+  using L = Layout<D>;
   constexpr int kMT = L::kMT;
   constexpr int kRows = 16 * kMT;       // query rows a warp
-  constexpr int kThreads = kWarps * 32;
   constexpr int kBQ = L::kBQ;
   constexpr int kChunks = D / 8;        // 16-byte chunks a row; O's n-tiles
   constexpr int kSteps = D / 16;        // k-steps of QK^T
   constexpr int kKeyTiles = kBK / 8;    // n-tiles of S
-  constexpr bool kQInRegs = L::kQInRegs;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = base + (L::kQInRing ? 0 : kBQ * D);  // [kStages][kBK][D]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][D]; O in the epilogue
+  bf16* ks = qs + kBQ * D;                        // [kStages][kBK][D]
   bf16* vs = ks + kStages * kBK * D;              // [kStages][kBK][D]
-  bf16* qs = L::kQInRing ? ks + kBK * D : base;   // [kBQ][D]
-  bf16* os = L::kQInRing ? ks : qs;               // O staged in the epilogue
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -259,25 +242,15 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int kv_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kv_begin = (q0 - window + 1) / kBK;
 
-  load_tile<D, kBQ, kThreads>(qs, qb, q_stride, q0, sq, dh, vec);
+  load_tile<D, kBQ>(qs, qb, q_stride, q0, sq, dh, vec);
   cp_commit();
   if (kv_begin < kv_end) {
-    load_tile<D, kBK, kThreads>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
-    load_tile<D, kBK, kThreads>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
+    load_tile<D, kBK>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
+    load_tile<D, kBK>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
   }
   cp_commit();
-  cp_wait<1>();
+  cp_wait<1>();       // Q has landed (the first tile may still be in flight)
   __syncthreads();
-
-  auto load_q = [&](uint32_t* a, int mt, int kk) {
-    ldsm_x4(a, qs + qrow + 16 * mt * D + ((kk >> 2) << 6) + qoff[kk & 3]);
-  };
-  uint32_t qf[kQInRegs ? kSteps : 1][4];
-  if constexpr (kQInRegs) {
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) load_q(qf[kk], 0, kk);
-    if constexpr (L::kQInRing) __syncthreads();  // stage 1 is refilled below
-  }
 
   float acc[kMT][kChunks][4];
   float m[kMT][2], l[kMT][2];         // m in log2 units; l: this thread's share
@@ -294,10 +267,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // prefetch the next tile into the stage the previous tile freed
     if (tile + 1 < kv_end) {
       const int ns = (it + 1) % kStages;
-      load_tile<D, kBK, kThreads>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk,
-                                  dh, vec);
-      load_tile<D, kBK, kThreads>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk,
-                                  dh, vec);
+      load_tile<D, kBK>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
+      load_tile<D, kBK>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
     }
     cp_commit();
     cp_wait<1>();
@@ -320,14 +291,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < kSteps; ++kk) {
         uint32_t a[kMT][4];
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          if constexpr (kQInRegs) {
-            a[mt][0] = qf[kk][0]; a[mt][1] = qf[kk][1];
-            a[mt][2] = qf[kk][2]; a[mt][3] = qf[kk][3];
-          } else {
-            load_q(a[mt], mt, kk);
-          }
-        }
+        for (int mt = 0; mt < kMT; ++mt)
+          ldsm_x4(a[mt], qs + qrow + 16 * mt * D + ((kk >> 2) << 6) + qoff[kk & 3]);
 #pragma unroll
         for (int j = 0; j < kKeyTiles; j += 2) {
           uint32_t bk[4];
@@ -415,7 +380,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // epilogue: O / max(l, 1e-20) in float32, rounded to bf16, staged in the
-  // warp's own rows of os, then written out 16 bytes at a time
+  // warp's own rows of qs, then written out 16 bytes at a time
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
     float inv[2];
@@ -429,9 +394,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = wr0 + 16 * mt + g;
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
-      *reinterpret_cast<uint32_t*>(os + swz<D>(row, j) + 2 * tq) =
+      *reinterpret_cast<uint32_t*>(qs + swz<D>(row, j) + 2 * tq) =
           pack_bf16(acc[mt][j][0] * inv[0], acc[mt][j][1] * inv[0]);
-      *reinterpret_cast<uint32_t*>(os + swz<D>(row + 8, j) + 2 * tq) =
+      *reinterpret_cast<uint32_t*>(qs + swz<D>(row + 8, j) + 2 * tq) =
           pack_bf16(acc[mt][j][2] * inv[1], acc[mt][j][3] * inv[1]);
     }
   }
@@ -443,14 +408,14 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int c = i % kChunks;
       if (wq0 + r < sq && c * 8 < dh)
         *reinterpret_cast<int4*>(ob + (wq0 + r) * q_stride + c * 8) =
-            *reinterpret_cast<const int4*>(os + swz<D>(wr0 + r, c));
+            *reinterpret_cast<const int4*>(qs + swz<D>(wr0 + r, c));
     }
   } else {
     for (int i = lane; i < kRows * D; i += 32) {
       const int r = i / D;
       const int c = i % D;
       if (wq0 + r < sq && c < dh)
-        ob[(wq0 + r) * q_stride + c] = os[swz<D>(wr0 + r, c >> 3) + (c & 7)];
+        ob[(wq0 + r) * q_stride + c] = qs[swz<D>(wr0 + r, c >> 3) + (c & 7)];
     }
   }
 }
@@ -459,16 +424,15 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
                    int causal, int window, cudaStream_t stream) {
-  constexpr int kWarps = FLASH_BF16_WARPS;
-  using L = Layout<D, kWarps>;
+  using L = Layout<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D, kWarps>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   const int vec = dh % 8 == 0 && any % 16 == 0;
   const dim3 grid(b * heads, (sq + L::kBQ - 1) / L::kBQ);
-  flash_bf16_kernel<D, kWarps><<<grid, kWarps * 32, L::kSmem, stream>>>(
+  flash_bf16_kernel<D><<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), sq, sk, heads, kv_heads, dh, scale * kLog2e, causal, window,
       vec);

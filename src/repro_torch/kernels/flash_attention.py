@@ -21,8 +21,8 @@ MAX_HEAD_DIM = 256
 
 
 @functools.cache
-def _entry(defines: tuple[str, ...] = ()):
-    fn = _build.load("flash_attention", defines).flash_attention
+def _entry():
+    fn = _build.load("flash_attention").flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
