@@ -237,35 +237,37 @@ def chunk_inputs(spec, tuples, num_sec: int, dev):
 
 
 def cms_host_pieces(sketch, eff, cols, val) -> dict:
-    """Host ms of each piece of one cms_update call, each alone over many
-    calls (host_ms): the wrapper's input checks, the stream lookup it makes
-    (and torch.cuda.current_stream's, which it replaced), the four data
-    pointers, the launch through the source's extension module (and the
-    same C entry through ctypes, which it replaced), the whole wrapper, the
-    dispatch entry point the executor calls, and the three no-op dtype
-    conversions that entry point made before."""
+    """Host ms of the pieces of one cms_update call, each alone over many
+    calls (host_ms): the extension module's call on an empty chunk (it reads
+    and checks the four tensors, then stops), the raw stream lookup (and
+    torch.cuda.current_stream's), the four data pointers read in Python, a
+    bare launch through the same C entry by ctypes (how the wrapper launched
+    before), the module's call with the chunk (checks, stream, launch), the
+    whole wrapper, the dispatch entry point the executor calls, and the
+    three no-op dtype conversions that entry point made before."""
     import ctypes
 
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels import cms_update as mod
-    index, n, num_pe, depth, width, is_float = mod._check(sketch, eff, cols, val)
     entry = mod._entry()
     by_ctypes = _build.load("cms_update").cms_update
     by_ctypes.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     by_ctypes.restype = ctypes.c_int
     raw = torch._C._cuda_getCurrentRawStream
-    args = (*(t.data_ptr() for t in (sketch, eff, cols, val)), n, num_pe, depth, width,
-            is_float, raw(index))
+    index = sketch.get_device()
+    args = (*(t.data_ptr() for t in (sketch, eff, cols, val)), eff.numel(), *sketch.shape,
+            int(sketch.dtype == torch.float32), raw(index))
+    empty = (eff[:0], cols[:0], val[:0])
     calls = 2000
     return {
-        "checks_ms": host_ms(lambda: mod._check(sketch, eff, cols, val), calls),
+        "checks_ms": host_ms(lambda: entry(sketch, *empty), calls),
         "stream_ms": host_ms(lambda: raw(index), calls),
         "current_stream_ms": host_ms(
             lambda: torch.cuda.current_stream(sketch.device).cuda_stream, calls),
         "data_ptrs_ms": host_ms(lambda: [t.data_ptr() for t in (sketch, eff, cols, val)],
                                 calls),
-        "launch_call_ms": host_ms(lambda: entry(*args), calls),
         "ctypes_launch_call_ms": host_ms(lambda: by_ctypes(*args), calls),
+        "module_call_ms": host_ms(lambda: entry(sketch, eff, cols, val), calls),
         "wrapper_ms": host_ms(lambda: mod.cms_update(sketch, eff, cols, val), calls),
         "dispatch_ms": host_ms(lambda: dispatch.cms_update(sketch, eff, cols, val), calls),
         "noop_conversions_ms": host_ms(

@@ -3,10 +3,10 @@
 Replaces ``src/repro/kernels/cms_update.py::cms_update``, HHD's PE update.
 It is bound by bytes (4 + 4*depth + 4 B a tuple plus one read and one write
 of each sketch cell touched) and, at the executor's chunk sizes, by the
-host time of its call, so the wrapper keeps that path short: one combined
-test of every input (the message is worked out only when it fails), the
-raw stream handle, and a call into the source's CPython extension module in
-place of ctypes.  The plain version is ``ref.cms_update``.
+host time of its call, so the path is short: one call into the source's
+CPython extension module, which checks the tensors, reads the current
+stream and launches in C; the message of a refused input is worked out in
+Python only then.  The plain version is ``ref.cms_update``.
 """
 from __future__ import annotations
 
@@ -16,20 +16,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-_IS_FLOAT = {torch.int32: 0, torch.float32: 1}
-_INT32 = torch.int32
+_FLOATS = (torch.int32, torch.float32)
 
 
 @functools.cache
 def _entry():
-    """The launch: the source's extension-module function, which takes the
-    four pointers, n, num_pe, depth, width, is_float and the stream as ints
-    and returns the CUDA error."""
-    return _build.load_module("cms_update").cms_update
+    """``update(sketch, eff, cols, value)`` of the source's CPython extension
+    module: checks the four tensors and launches in C; returns 1 after a
+    launch, 0 for an empty chunk and -1 for inputs the kernel does not
+    take."""
+    return _build.load_module("cms_update").update
 
 
-def _bad_input(sketch, eff, cols, value, n, depth) -> ValueError:
-    """The error for inputs that failed the combined test in ``_check``."""
+def _input_error(sketch, eff, cols, value) -> ValueError:
+    """What is wrong with inputs that ``update`` refused."""
+    if sketch.dim() != 3 or sketch.dtype not in _FLOATS:
+        return ValueError(f"sketch must be 3-D int32|float32, got "
+                          f"{tuple(sketch.shape)} {sketch.dtype}")
+    depth = sketch.shape[1]
+    n = eff.shape[0] if eff.dim() else 0
     for name, t, dtype, shape in (
             ("eff", eff, torch.int32, (n,)),
             ("cols", cols, torch.int32, (n, depth)),
@@ -45,33 +50,6 @@ def _bad_input(sketch, eff, cols, value, n, depth) -> ValueError:
     return ValueError("cms_update takes fewer than 2**31 cells and tuples")
 
 
-def _check(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
-           value: torch.Tensor) -> tuple[int, int, int, int, int, int]:
-    """(device index, n, num_pe, depth, width, is_float) of valid inputs;
-    raises ValueError on anything the kernel does not take."""
-    if not sketch.is_cuda:
-        raise ValueError(f"cms_update runs on CUDA tensors, got {sketch.device}")
-    dtype = sketch.dtype
-    is_float = _IS_FLOAT.get(dtype)
-    shape = sketch.shape
-    if is_float is None or len(shape) != 3:
-        raise ValueError(f"sketch must be 3-D int32|float32, got "
-                         f"{tuple(shape)} {dtype}")
-    num_pe, depth, width = shape
-    n = eff.numel()
-    index = sketch.get_device()
-    if (eff.dtype is not _INT32 or cols.dtype is not _INT32 or value.dtype is not dtype
-            or eff.get_device() != index or cols.get_device() != index
-            or value.get_device() != index
-            or eff.dim() != 1 or value.dim() != 1 or value.numel() != n
-            or cols.shape != (n, depth)
-            or not (sketch.is_contiguous() and eff.is_contiguous()
-                    and cols.is_contiguous() and value.is_contiguous())
-            or num_pe * depth * width >= 2**31 or n >= 2**31):
-        raise _bad_input(sketch, eff, cols, value, n, depth)
-    return index, n, num_pe, depth, width, is_float
-
-
 def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
                value: torch.Tensor) -> torch.Tensor:
     """Add ``value[t]`` to ``sketch[eff[t], d, cols[t, d]]`` for every row d,
@@ -83,15 +61,12 @@ def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
     outside [0, num_pe) or a column outside [0, width) are dropped.  Raises
     on any other input, and if the launch fails.  Launches on the device's
     current stream (``torch.cuda.stream`` contexts included)."""
-    index, n, num_pe, depth, width, is_float = _check(sketch, eff, cols, value)
-    if n == 0:
-        return sketch
-    err = _entry()(sketch.data_ptr(), eff.data_ptr(), cols.data_ptr(),
-                   value.data_ptr(), n, num_pe, depth, width, is_float,
-                   torch._C._cuda_getCurrentRawStream(index))
-    if err:
-        raise RuntimeError(f"cms_update launch failed: CUDA error {err}")
-    cms_update.launches += 1
+    if not sketch.is_cuda:
+        raise ValueError(f"cms_update runs on CUDA tensors, got {sketch.device}")
+    launched = _entry()(sketch, eff, cols, value)
+    if launched < 0:
+        raise _input_error(sketch, eff, cols, value)
+    cms_update.launches += launched
     return sketch
 
 

@@ -32,9 +32,10 @@
 // order than the plain version.
 //
 // Binding: besides the plain C entry, the library is a CPython extension
-// module (cms_update, one METH_FASTCALL function taking the same ten ints).
-// At 4096 tuples a call is all host time, and a ctypes call costs ~2 us more
-// than the launch itself on an H100's host (PERF.md); the module needs only
+// module (cms_update.update, at the end).  At 4096 tuples a call is all host
+// time: on an H100's host a ctypes call costs ~2.5 us more than a
+// METH_FASTCALL one, and the input checks cost ~3 us in Python (PERF.md), so
+// the module takes the tensors and checks them in C.  It needs only
 // Python.h, so the build stays seconds long.
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -106,28 +107,122 @@ extern "C" int cms_update(void* sketch, const void* eff, const void* cols,
   return static_cast<int>(err);
 }
 
-// cms_update.cms_update(sketch, eff, cols, val, n, num_pe, depth, width,
-// is_float, stream) -> CUDA error: the C entry above, for Python ints.
-static PyObject* py_cms_update(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  if (nargs != 10) {
-    PyErr_SetString(PyExc_TypeError, "cms_update takes 10 ints");
-    return nullptr;
-  }
-  void* ptr[4];
-  for (int i = 0; i < 4; ++i) ptr[i] = PyLong_AsVoidPtr(args[i]);
-  int arg[5];
-  for (int i = 0; i < 5; ++i) arg[i] = static_cast<int>(PyLong_AsLong(args[4 + i]));
-  void* stream = PyLong_AsVoidPtr(args[9]);
-  if (PyErr_Occurred()) return nullptr;
-  return PyLong_FromLong(cms_update(ptr[0], ptr[1], ptr[2], ptr[3], arg[0], arg[1], arg[2],
-                                    arg[3], arg[4], stream));
+// ---- the CPython binding
+//
+// cms_update.update(sketch, eff, cols, value) takes the four tensors,
+// reads what the kernel needs from each (dtype, shape, device, contiguity,
+// data pointer), makes every check of the Python wrapper, looks up the
+// device's current stream and launches.  Returns 1 after a launch, 0 for an
+// empty chunk, -1 if an input fails a check (the wrapper then works out
+// which, and raises); raises RuntimeError if the launch fails.
+
+namespace {
+
+struct Names {
+  PyObject *dtype, *shape, *get_device, *is_contiguous, *data_ptr;
+  PyObject *int32, *float32, *raw_stream;  // torch.int32, torch.float32,
+                                           // torch._C._cuda_getCurrentRawStream
+};
+Names g;
+
+struct TensorInfo {
+  PyObject* dtype;     // borrowed: torch's dtype objects live as long as torch
+  long long dims[3];
+  int ndim;
+  long device;
+  bool contiguous;
+  void* ptr;
+};
+
+bool read_tensor(PyObject* t, TensorInfo* out) {
+  PyObject* dtype = PyObject_GetAttr(t, g.dtype);
+  if (!dtype) return false;
+  out->dtype = dtype;
+  Py_DECREF(dtype);
+  PyObject* shape = PyObject_GetAttr(t, g.shape);
+  if (!shape) return false;
+  const Py_ssize_t nd = PyTuple_Size(shape);
+  out->ndim = nd < 0 || nd > 3 ? -1 : static_cast<int>(nd);
+  for (int i = 0; i < out->ndim; ++i)
+    out->dims[i] = PyLong_AsLongLong(PyTuple_GET_ITEM(shape, i));
+  Py_DECREF(shape);
+  PyObject* r = PyObject_CallMethodNoArgs(t, g.get_device);
+  if (!r) return false;
+  out->device = PyLong_AsLong(r);
+  Py_DECREF(r);
+  r = PyObject_CallMethodNoArgs(t, g.is_contiguous);
+  if (!r) return false;
+  out->contiguous = r == Py_True;
+  Py_DECREF(r);
+  r = PyObject_CallMethodNoArgs(t, g.data_ptr);
+  if (!r) return false;
+  out->ptr = PyLong_AsVoidPtr(r);
+  Py_DECREF(r);
+  return !PyErr_Occurred();
 }
 
-static PyMethodDef kMethods[] = {
-    {"cms_update", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(py_cms_update)),
-     METH_FASTCALL, "Launch the count-min sketch update; returns the CUDA error."},
+PyObject* py_update(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 4) {
+    PyErr_SetString(PyExc_TypeError, "update takes sketch, eff, cols, value");
+    return nullptr;
+  }
+  TensorInfo sk, eff, cols, val;
+  if (!read_tensor(args[0], &sk) || !read_tensor(args[1], &eff) ||
+      !read_tensor(args[2], &cols) || !read_tensor(args[3], &val))
+    return nullptr;
+  const bool is_float = sk.dtype == g.float32;
+  const long long n = eff.ndim == 1 ? eff.dims[0] : -1;
+  const bool ok =
+      (is_float || sk.dtype == g.int32) && sk.ndim == 3 && sk.device >= 0 &&
+      eff.dtype == g.int32 && cols.dtype == g.int32 && val.dtype == sk.dtype &&
+      eff.device == sk.device && cols.device == sk.device && val.device == sk.device &&
+      n >= 0 && val.ndim == 1 && val.dims[0] == n && cols.ndim == 2 && cols.dims[0] == n &&
+      cols.dims[1] == sk.dims[1] && sk.contiguous && eff.contiguous && cols.contiguous &&
+      val.contiguous && sk.dims[0] * sk.dims[1] * sk.dims[2] < (1LL << 31) &&
+      n < (1LL << 31);
+  if (!ok) return PyLong_FromLong(-1);
+  if (n == 0) return PyLong_FromLong(0);
+  PyObject* index = PyLong_FromLong(sk.device);
+  if (!index) return nullptr;
+  PyObject* st = PyObject_CallOneArg(g.raw_stream, index);
+  Py_DECREF(index);
+  if (!st) return nullptr;
+  void* stream = PyLong_AsVoidPtr(st);
+  Py_DECREF(st);
+  if (PyErr_Occurred()) return nullptr;
+  const int err = cms_update(sk.ptr, eff.ptr, cols.ptr, val.ptr, static_cast<int>(n),
+                             static_cast<int>(sk.dims[0]), static_cast<int>(sk.dims[1]),
+                             static_cast<int>(sk.dims[2]), is_float, stream);
+  if (err) return PyErr_Format(PyExc_RuntimeError, "cms_update launch failed: CUDA error %d", err);
+  return PyLong_FromLong(1);
+}
+
+PyMethodDef kMethods[] = {
+    {"update", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(py_update)),
+     METH_FASTCALL, "Check the inputs and launch the count-min sketch update."},
     {nullptr, nullptr, 0, nullptr}};
 
-static PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "cms_update", nullptr, -1, kMethods};
+PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "cms_update", nullptr, -1, kMethods};
 
-PyMODINIT_FUNC PyInit_cms_update(void) { return PyModule_Create(&kModule); }
+}  // namespace
+
+PyMODINIT_FUNC PyInit_cms_update(void) {
+  PyObject* torch = PyImport_ImportModule("torch");
+  if (!torch) return nullptr;
+  PyObject* c = PyObject_GetAttrString(torch, "_C");
+  g.int32 = PyObject_GetAttrString(torch, "int32");
+  g.float32 = PyObject_GetAttrString(torch, "float32");
+  Py_DECREF(torch);
+  if (!c || !g.int32 || !g.float32) return nullptr;
+  g.raw_stream = PyObject_GetAttrString(c, "_cuda_getCurrentRawStream");
+  Py_DECREF(c);
+  if (!g.raw_stream) return nullptr;
+  g.dtype = PyUnicode_InternFromString("dtype");
+  g.shape = PyUnicode_InternFromString("shape");
+  g.get_device = PyUnicode_InternFromString("get_device");
+  g.is_contiguous = PyUnicode_InternFromString("is_contiguous");
+  g.data_ptr = PyUnicode_InternFromString("data_ptr");
+  if (!g.dtype || !g.shape || !g.get_device || !g.is_contiguous || !g.data_ptr)
+    return nullptr;
+  return PyModule_Create(&kModule);
+}
