@@ -27,7 +27,7 @@
 //   - one global atomicAdd per (tuple, row).  Warp-aggregated atomics
 //     (lanes whose flat cell index matches under __match_any_sync sum their
 //     values and the lowest lane adds the sum) measured slower on an H100
-//     at both alpha = 3 and alpha = 0 (PERF.md, PR 13), so they were left out.
+//     at both alpha = 3 and alpha = 0 (PERF.md), so they were left out.
 // int32 adds commute, so the result is bit-exact; float32 sums in another
 // order than the plain version.
 //

@@ -45,7 +45,7 @@
 //     registers and V loaded by ldmatrix.trans;
 //   - the epilogue divides in float32, rounds to bf16 and stages the tile
 //     in shared memory so each store is 16 bytes and coalesced.
-// Measured on an H100 (PERF.md, PR 13), this layout beat 8 warps a block
+// Measured on an H100 (PERF.md), this layout beat 8 warps a block
 // and 1 m-tile a warp with Q held in registers as A fragments for the whole
 // KV loop.  dh is zero-padded in shared memory to the template's 64, 128 or
 // 256.  Where dh is not a multiple of 8 or a pointer is not 16-byte aligned,
