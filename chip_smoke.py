@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result lines):
-  1. build both hand-written CUDA kernels (route_accumulate, cms_update)
-     from src/repro_torch/kernels/csrc/ with nvcc for sm_90a, in parallel;
+  1. build every hand-written CUDA kernel (route_accumulate, cms_update,
+     moe_onehot, flash_attention) from src/repro_torch/kernels/csrc/ with
+     nvcc for sm_90a, one process a source, in parallel;
   2. hold each kernel against its plain PyTorch version on the same CUDA
      tensors, at the main path's shape and (route_accumulate) at a buffer
      of 2^20 bins: add/max x int32/float32, -1 padding, the
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero before the result lines):
      in turns; torch.profiler for the card's time of the kernel alone),
      beside its bound from the bytes and operations this chunk's data
      needs; cms_update's card time also at an alpha-0 chunk, and the host
-     time of each piece of its call (the cms_update_host line);
+     time of each piece of both PE updates' calls (the route_accumulate_host
+     and cms_update_host lines);
   6. profile 64 chunks of every configuration (torch.profiler): the card's
      time and the host's aten ops per chunk against the wall time per
      chunk; time the app's PrePE and the greedy scheduler alone.
@@ -53,7 +55,8 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      2-request DecodeEngine, on the same weights;
   D. time each new kernel, its plain version and one library call on the
      first layer's inputs of a prefill run, beside its bound; flash also on
-     float32 copies of those inputs (the CUDA-core kernel).
+     float32 copies of those inputs (the CUDA-core kernel), and dispatch also
+     on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
@@ -236,43 +239,20 @@ def chunk_inputs(spec, tuples, num_sec: int, dev):
     return mapper.redirect(plan, dst, rank), idx.contiguous(), value
 
 
-def cms_host_pieces(sketch, eff, cols, val) -> dict:
-    """Host ms of the pieces of one cms_update call, each alone over many
-    calls (host_ms): the extension module's call on an empty chunk (it reads
-    and checks the four tensors, then stops), the raw stream lookup (and
-    torch.cuda.current_stream's), the four data pointers read in Python, a
-    bare launch through the same C entry by ctypes (how the wrapper launched
-    before), the module's call with the chunk (checks, stream, launch), the
-    whole wrapper, the dispatch entry point the executor calls, and the
-    three no-op dtype conversions that entry point made before."""
-    import ctypes
-
-    from repro_torch.kernels import _build, dispatch
-    from repro_torch.kernels import cms_update as mod
-    entry = mod._entry()
-    by_ctypes = _build.load("cms_update").cms_update
-    by_ctypes.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    by_ctypes.restype = ctypes.c_int
-    raw = torch._C._cuda_getCurrentRawStream
-    index = sketch.get_device()
-    args = (*(t.data_ptr() for t in (sketch, eff, cols, val)), eff.numel(), *sketch.shape,
-            int(sketch.dtype == torch.float32), raw(index))
-    empty = (eff[:0], cols[:0], val[:0])
+def pe_host_pieces(entry, wrapper, via_dispatch, tensors, extra=()) -> dict:
+    """Host ms of the pieces of one PE-update call (route_accumulate or
+    cms_update), each alone over many calls (host_ms): the extension
+    module's call on an empty chunk (it reads and checks the four tensors,
+    then stops), the module's call with the chunk (checks, stream, launch),
+    the whole wrapper, and the dispatch entry point the executor calls.
+    ``extra`` follows the tensors in the module's call."""
+    empty = (tensors[0], *(t[:0] for t in tensors[1:]), *extra)
     calls = 2000
     return {
-        "checks_ms": host_ms(lambda: entry(sketch, *empty), calls),
-        "stream_ms": host_ms(lambda: raw(index), calls),
-        "current_stream_ms": host_ms(
-            lambda: torch.cuda.current_stream(sketch.device).cuda_stream, calls),
-        "data_ptrs_ms": host_ms(lambda: [t.data_ptr() for t in (sketch, eff, cols, val)],
-                                calls),
-        "ctypes_launch_call_ms": host_ms(lambda: by_ctypes(*args), calls),
-        "module_call_ms": host_ms(lambda: entry(sketch, eff, cols, val), calls),
-        "wrapper_ms": host_ms(lambda: mod.cms_update(sketch, eff, cols, val), calls),
-        "dispatch_ms": host_ms(lambda: dispatch.cms_update(sketch, eff, cols, val), calls),
-        "noop_conversions_ms": host_ms(
-            lambda: (eff.to(torch.int32).contiguous(), cols.to(torch.int32).contiguous(),
-                     val.to(sketch.dtype).contiguous()), calls)}
+        "checks_ms": host_ms(lambda: entry(*empty), calls),
+        "module_call_ms": host_ms(lambda: entry(*tensors, *extra), calls),
+        "wrapper_ms": host_ms(lambda: wrapper(*tensors), calls),
+        "dispatch_ms": host_ms(lambda: via_dispatch(*tensors), calls)}
 
 
 def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
@@ -361,7 +341,8 @@ def check_lm_kernels(dev) -> dict:
         assert bool((diff <= tol * (1 + mag)).all()), f"{name}: max |err| {err[name]}"
 
     pe, d = 72, 2048                 # 64 experts + X = 8 slots, d_model
-    for g, t, cap in ((8, 3072, 60), (1, 24, 4)):       # prefill, decode
+    # prefill, decode at 4 slots, decode at 64 slots (many past capacity)
+    for g, t, cap in ((8, 3072, 60), (1, 24, 4), (1, 384, 7)):
         eff = torch.from_numpy(rng.integers(0, pe, (g, t)).astype(np.int32)).to(dev)
         drop = torch.from_numpy(rng.random((g, t))).to(dev)
         for unique in (True, False):
@@ -608,57 +589,90 @@ def lm_cpu_parity(dev, params8) -> dict:
             "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0}
 
 
+def library_dispatch(eff, slot, xin, num_pe, cap):
+    """onehot_dispatch's library yardstick: zero_() then
+    index_put_(accumulate=True) of the kept rows at their flat cells, both
+    precomputed; and the kept row count."""
+    g, _, d = xin.shape
+    keep = (eff >= 0) & (eff < num_pe) & (slot >= 0) & (slot < cap)
+    cells = (torch.arange(g, device=xin.device)[:, None] * (num_pe * cap)
+             + eff.long() * cap + slot.long())[keep]
+    rows = xin[keep]
+    buf = torch.zeros((g * num_pe * cap, d), dtype=xin.dtype, device=xin.device)
+    return lambda: buf.zero_().index_put_((cells,), rows, accumulate=True), int(keep.sum())
+
+
 def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
     """Phase D: each LM kernel on the inputs that the first layer of a
     prefill run hands it (captured in passing), its plain version and one
     library call, beside its bound from this run's data."""
     from repro_torch.kernels import dispatch, ref
-    seen = {}
-    originals = {n: getattr(dispatch, n) for n in LM_KERNELS}
 
-    def capture(name):
-        def fn(*args, **kwargs):
-            seen.setdefault(name, (args, kwargs))
-            return originals[name](*args, **kwargs)
-        return fn
+    def first_inputs(call, names) -> dict:
+        """The arguments of the first call of each named dispatch entry
+        point that ``call`` makes."""
+        seen = {}
+        originals = {n: getattr(dispatch, n) for n in names}
 
-    for n in LM_KERNELS:
-        setattr(dispatch, n, capture(n))
-    try:
-        model.prefill_fn(params, {"tokens": tokens})
-    finally:
-        for n in LM_KERNELS:
-            setattr(dispatch, n, originals[n])
-    torch.cuda.synchronize()
+        def capture(name):
+            def fn(*args, **kwargs):
+                seen.setdefault(name, (args, kwargs))
+                return originals[name](*args, **kwargs)
+            return fn
+
+        for n in names:
+            setattr(dispatch, n, capture(n))
+        try:
+            call()
+        finally:
+            for n in names:
+                setattr(dispatch, n, originals[n])
+        torch.cuda.synchronize()
+        return seen
+
+    seen = first_inputs(lambda: model.prefill_fn(params, {"tokens": tokens}), LM_KERNELS)
+    # a decode step at serving load: one token for each of LOAD_SLOTS slots
+    cache = model.init_cache(params, LOAD_SLOTS, 16)
+    step = {"tokens": tokens.reshape(-1)[:LOAD_SLOTS, None], "cache": cache, "cache_len": 0}
+    (eff_d, slot_d, x_d, pe_d, cap_d), _ = first_inputs(
+        lambda: model.decode_fn(params, step), ("onehot_dispatch",))["onehot_dispatch"]
+    del cache, step
+    # slots are occurrence ranks, so every kept cell is unique: bit-exact
+    assert torch.equal(dispatch.onehot_dispatch(eff_d, slot_d, x_d, pe_d, cap_d),
+                       ref.onehot_dispatch(eff_d, slot_d, x_d, pe_d, cap_d)), \
+        "onehot_dispatch differs from its plain version at the decode-at-load shape"
     out = []
 
+    # a call is the head-map memset, the link kernel and the fill kernel
+    kernels_of_call = ("dispatch_link_kernel", "dispatch_fill_kernel", "Memset")
     (eff, slot, xin, num_pe, cap), _ = seen["onehot_dispatch"]
     g, t, d = xin.shape
     es = xin.element_size()
-    keep = (eff >= 0) & (eff < num_pe) & (slot >= 0) & (slot < cap)
-    kept = int(keep.sum())
-    cells = (torch.arange(g, device=dev)[:, None] * (num_pe * cap)
-             + eff.long() * cap + slot.long())[keep]
-    rows = xin[keep]
-    lib_buf = torch.zeros((g * num_pe * cap, d), dtype=xin.dtype, device=dev)
+    library, kept = library_dispatch(eff, slot, xin, num_pe, cap)
     fn = lambda: dispatch.onehot_dispatch(eff, slot, xin, num_pe, cap)
+    turns = cuda_ms_turns({"kernel": fn, "library": library}, iters=50)
     b_ms, b_by = bound_ms(g * t * 8 + kept * d * es + g * num_pe * cap * d * es, kept * d)
+    library_d, kept_d = library_dispatch(eff_d, slot_d, x_d, pe_d, cap_d)
+    fn_d = lambda: dispatch.onehot_dispatch(eff_d, slot_d, x_d, pe_d, cap_d)
+    turns_d = cuda_ms_turns({"kernel": fn_d, "library": library_d})
     out.append({
         "name": "onehot_dispatch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_onehot.cu",
         "replaces": "src/repro/kernels/moe_onehot.py:74",
         "launches": counts["onehot_dispatch"], "max_abs_err": max_err["onehot_dispatch"],
-        "ms": cuda_ms(fn, iters=50), "device_ms": device_ms(
-            fn, ("dispatch_kernel", "Memset"), calls=50, per_call=2),
+        "ms": turns["kernel"],
+        "device_ms": device_ms(fn, kernels_of_call, calls=50, per_call=3),
         "plain_ms": cuda_ms(lambda: ref.onehot_dispatch(eff, slot, xin, num_pe, cap), iters=20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: lib_buf.zero_().index_put_((cells,), rows,
-                                                                 accumulate=True),
-                              iters=50),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": turns["library"],
+        "ms_decode": turns_d["kernel"],
+        "device_ms_decode": device_ms(fn_d, kernels_of_call, per_call=3),
+        "library_ms_decode": turns_d["library"],
         "shape": f"prefill layer 0: G={g} T={t} -> [{g}, {num_pe}, {cap}, {d}] "
-                 f"{str(xin.dtype).removeprefix('torch.')}, {kept} rows kept",
+                 f"{str(xin.dtype).removeprefix('torch.')}, {kept} rows kept; *_decode: "
+                 f"decode layer 0 at {LOAD_SLOTS} slots: G={x_d.shape[0]} T={x_d.shape[1]} "
+                 f"-> [{x_d.shape[0]}, {pe_d}, {cap_d}, {x_d.shape[2]}], {kept_d} rows kept",
         "library_call": "zero_() then index_put_(accumulate=True) on precomputed "
-                        "flat cells"})
+                        "flat cells; ms and library_ms timed in turns"})
     out[-1]["kernel_ms"] = out[-1]["ms"]
 
     (eff, slot, packed, gate), _ = seen["onehot_combine"]
@@ -742,7 +756,9 @@ def main() -> int:
     from repro_torch.core.scheduler import schedule_secpes
     from repro_torch.core.types import ExecStats
     from repro_torch.data.zipf import zipf_tuples
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, dispatch, ref
+    from repro_torch.kernels import cms_update as cms_mod
+    from repro_torch.kernels import route_accumulate as route_mod
     from repro_torch.kernels.cms_update import cms_update
     from repro_torch.kernels.route_accumulate import route_accumulate
 
@@ -862,6 +878,9 @@ def main() -> int:
         0, flat, val, "amax")})
     ms, lib_ms = turns["kernel"], turns["library"]
     dev_ms = device_ms(fn, "route_accumulate_")
+    print("route_accumulate_host", json.dumps(pe_host_pieces(
+        route_mod._entry(), lambda *t: route_accumulate(*t, "max"),
+        lambda *t: dispatch.pe_buffer_update(*t, "max"), (buf, eff, idx, val), (1,))))
     plain_ms = cuda_ms(lambda: ref.pe_buffer_update(buf, eff, idx, val, "max"))
     b_ms, b_by = route_bound(buf, eff, idx)
     kernels.append({
@@ -894,7 +913,8 @@ def main() -> int:
     eff0, cols0, val0 = chunk_inputs(cspec, stream_0, x0, dev)
     sketch0 = cspec.init_buffer(16 + x0, dev)
     dev_ms_a0 = device_ms(lambda: cms_update(sketch0, eff0, cols0, val0), "cms_update_kernel")
-    print("cms_update_host", json.dumps(cms_host_pieces(sketch, eff, cols, val)))
+    print("cms_update_host", json.dumps(pe_host_pieces(
+        cms_mod._entry(), cms_update, dispatch.cms_update, (sketch, eff, cols, val))))
     plain_ms = cuda_ms(lambda: ref.cms_update(sketch, eff, cols, val))
     # bytes: eff, 4 columns and the value of each tuple, plus a read and a
     # write of each cell the valid tuples touch; one add per touched row

@@ -1,9 +1,11 @@
 """Kernels of the port: hand-written CUDA for Hopper (``csrc/``), their
-ctypes wrappers with launch counters, and their plain PyTorch versions.
+wrappers with launch counters (ctypes, or the source's own CPython
+extension module where the host's cost of a call matters), and their plain
+PyTorch versions.
 
   route_accumulate -- PriPE/SecPE buffer update (add|max, int32|float32)
   cms_update       -- count-min sketch multi-row update (HHD)
-  onehot_dispatch  -- MoE capacity-slot pack (row scatter)
+  onehot_dispatch  -- MoE capacity-slot pack (each packed row written once)
   onehot_combine   -- MoE capacity-slot unpack (row gather, gate-scaled)
   flash_attention  -- online-softmax attention forward (causal, window, GQA)
 

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface (pointers and the stream as
 seconds with nvcc alone, without PyTorch's headers.  A source whose call
 cost matters may also make its library a CPython extension module of the
 same name (Python.h only), loaded with ``load_module``.  Builds land in
-``build/repro_torch/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is never served from a stale library.
+``build/repro_torch/`` at the repository root, named by a hash of the source,
+of every header under ``csrc/`` and of the flags, so an edited source or
+header is never served from a stale library.
 Nothing is built at import: the first kernel call builds what it needs, and
 ``build`` compiles several sources at once (one nvcc process each).
 """
@@ -45,10 +46,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source of ``name`` and its library's path, named by a hash of
+    the source, every header under ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    sha = hashlib.sha1(src.read_bytes())
+    for header in sorted(p for p in CSRC.iterdir() if p.suffix in (".h", ".cuh")):
+        sha.update(header.name.encode() + header.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{sha.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, str]:

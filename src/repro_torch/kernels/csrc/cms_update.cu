@@ -32,13 +32,8 @@
 // order than the plain version.
 //
 // Binding: besides the plain C entry, the library is a CPython extension
-// module (cms_update.update, at the end).  At 4096 tuples a call is all host
-// time: on an H100's host a ctypes call costs ~2.5 us more than a
-// METH_FASTCALL one, and the input checks cost ~3 us in Python (PERF.md), so
-// the module takes the tensors and checks them in C.  It needs only
-// Python.h, so the build stays seconds long.
-#define PY_SSIZE_T_CLEAN
-#include <Python.h>
+// module (cms_update.update, at the end; py_tensor.h says why).
+#include "py_tensor.h"
 
 #include <cuda_runtime.h>
 
@@ -118,49 +113,6 @@ extern "C" int cms_update(void* sketch, const void* eff, const void* cols,
 
 namespace {
 
-struct Names {
-  PyObject *dtype, *shape, *get_device, *is_contiguous, *data_ptr;
-  PyObject *int32, *float32, *raw_stream;  // torch.int32, torch.float32,
-                                           // torch._C._cuda_getCurrentRawStream
-};
-Names g;
-
-struct TensorInfo {
-  PyObject* dtype;     // borrowed: torch's dtype objects live as long as torch
-  long long dims[3];
-  int ndim;
-  long device;
-  bool contiguous;
-  void* ptr;
-};
-
-bool read_tensor(PyObject* t, TensorInfo* out) {
-  PyObject* dtype = PyObject_GetAttr(t, g.dtype);
-  if (!dtype) return false;
-  out->dtype = dtype;
-  Py_DECREF(dtype);
-  PyObject* shape = PyObject_GetAttr(t, g.shape);
-  if (!shape) return false;
-  const Py_ssize_t nd = PyTuple_Size(shape);
-  out->ndim = nd < 0 || nd > 3 ? -1 : static_cast<int>(nd);
-  for (int i = 0; i < out->ndim; ++i)
-    out->dims[i] = PyLong_AsLongLong(PyTuple_GET_ITEM(shape, i));
-  Py_DECREF(shape);
-  PyObject* r = PyObject_CallMethodNoArgs(t, g.get_device);
-  if (!r) return false;
-  out->device = PyLong_AsLong(r);
-  Py_DECREF(r);
-  r = PyObject_CallMethodNoArgs(t, g.is_contiguous);
-  if (!r) return false;
-  out->contiguous = r == Py_True;
-  Py_DECREF(r);
-  r = PyObject_CallMethodNoArgs(t, g.data_ptr);
-  if (!r) return false;
-  out->ptr = PyLong_AsVoidPtr(r);
-  Py_DECREF(r);
-  return !PyErr_Occurred();
-}
-
 PyObject* py_update(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   if (nargs != 4) {
     PyErr_SetString(PyExc_TypeError, "update takes sketch, eff, cols, value");
@@ -181,14 +133,8 @@ PyObject* py_update(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
       val.contiguous && sk.dims[0] * sk.dims[1] * sk.dims[2] < (1LL << 31) &&
       n < (1LL << 31);
   if (!ok) return PyLong_FromLong(-1);
-  if (n == 0) return PyLong_FromLong(0);
-  PyObject* index = PyLong_FromLong(sk.device);
-  if (!index) return nullptr;
-  PyObject* st = PyObject_CallOneArg(g.raw_stream, index);
-  Py_DECREF(index);
-  if (!st) return nullptr;
-  void* stream = PyLong_AsVoidPtr(st);
-  Py_DECREF(st);
+  if (n == 0 || sk.dims[0] * sk.dims[1] * sk.dims[2] == 0) return PyLong_FromLong(0);
+  void* stream = current_stream(sk.device);
   if (PyErr_Occurred()) return nullptr;
   const int err = cms_update(sk.ptr, eff.ptr, cols.ptr, val.ptr, static_cast<int>(n),
                              static_cast<int>(sk.dims[0]), static_cast<int>(sk.dims[1]),
@@ -207,22 +153,6 @@ PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "cms_update", nullptr, -1, kMethod
 }  // namespace
 
 PyMODINIT_FUNC PyInit_cms_update(void) {
-  PyObject* torch = PyImport_ImportModule("torch");
-  if (!torch) return nullptr;
-  PyObject* c = PyObject_GetAttrString(torch, "_C");
-  g.int32 = PyObject_GetAttrString(torch, "int32");
-  g.float32 = PyObject_GetAttrString(torch, "float32");
-  Py_DECREF(torch);
-  if (!c || !g.int32 || !g.float32) return nullptr;
-  g.raw_stream = PyObject_GetAttrString(c, "_cuda_getCurrentRawStream");
-  Py_DECREF(c);
-  if (!g.raw_stream) return nullptr;
-  g.dtype = PyUnicode_InternFromString("dtype");
-  g.shape = PyUnicode_InternFromString("shape");
-  g.get_device = PyUnicode_InternFromString("get_device");
-  g.is_contiguous = PyUnicode_InternFromString("is_contiguous");
-  g.data_ptr = PyUnicode_InternFromString("data_ptr");
-  if (!g.dtype || !g.shape || !g.get_device || !g.is_contiguous || !g.data_ptr)
-    return nullptr;
+  if (!init_names()) return nullptr;
   return PyModule_Create(&kModule);
 }

@@ -34,12 +34,13 @@ def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
     """The PriPE/SecPE buffer update: fold ``value[t]`` into
     ``buffers[eff[t], idx[t]]`` in place (add|max) and return ``buffers``.
     buffers [num_pe, local]; out-of-range tuples (padding -1, the masked
-    sentinel eff = num_pe) are dropped."""
+    sentinel eff = num_pe) are dropped.  On the card the tensors go to the
+    kernel as they are (the executor and the apps' PrePEs hand over int32):
+    eff and idx int32 and value of the buffers' dtype, contiguous, or the
+    kernel wrapper raises."""
     if not _on_cuda(buffers):
         return ref.pe_buffer_update(buffers, eff, idx, value, combine)
-    return _route_cuda(buffers, eff.to(torch.int32).contiguous(),
-                       idx.to(torch.int32).contiguous(),
-                       value.to(buffers.dtype).contiguous(), combine)
+    return _route_cuda(buffers, eff, idx, value, combine)
 
 
 def scatter_accumulate(flat_idx: torch.Tensor, value: torch.Tensor,
@@ -49,6 +50,12 @@ def scatter_accumulate(flat_idx: torch.Tensor, value: torch.Tensor,
     out-of-range indices are dropped, and ``max`` starts from zeros, so its
     result is floored at 0."""
     out = torch.zeros((1, num_bins), dtype=value.dtype, device=value.device)
+    if _on_cuda(out):
+        # the kernel takes int32 indices: out-of-range ones become -1 before
+        # the cast, so that none wraps into range
+        ok = (flat_idx >= 0) & (flat_idx < num_bins)
+        flat_idx = torch.where(ok, flat_idx, -1).to(torch.int32).contiguous()
+        value = value.contiguous()
     eff = torch.zeros_like(flat_idx, dtype=torch.int32)
     return pe_buffer_update(out, eff, flat_idx, value, combine).view(-1)
 

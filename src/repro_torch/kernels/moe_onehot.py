@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA MoE pack/unpack (``csrc/moe_onehot.cu``).
 
 Replace ``src/repro/kernels/moe_onehot.py::onehot_dispatch`` and
-``::onehot_combine`` (one-hot MXU contractions on the TPU) with a row
-scatter and a row gather, one launch for all dispatch groups of a layer.
+``::onehot_combine`` (one-hot MXU contractions on the TPU).  Dispatch fills
+each packed row once from the tuples that land in it (a head-map memset, a
+link kernel and a fill kernel on the current stream), combine gathers one
+packed row per tuple; one call covers all dispatch groups of a layer.
 Both are bound by bytes; the source says how the design meets that.  The
 plain versions are ``ref.onehot_dispatch`` and ``ref.onehot_combine``.
 """
@@ -22,7 +24,7 @@ _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 def _entries():
     lib = _build.load("moe_onehot")
     disp, comb = lib.onehot_dispatch, lib.onehot_combine
-    disp.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    disp.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     comb.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     disp.restype = comb.restype = ctypes.c_int
     return disp, comb
@@ -50,6 +52,13 @@ def _check(rows: torch.Tensor, eff: torch.Tensor, slot: torch.Tensor,
     return g, t, rows.shape[-1]
 
 
+def _stream(t: torch.Tensor) -> int:
+    """The raw current stream of ``t``'s device (``torch.cuda.stream``
+    contexts included), without building a Stream object (~5 us on an
+    H100's host, PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _vec(d: int, *tensors) -> int:
     """1 when every row of the row tensors can move in 16-byte pieces."""
     return int(d * tensors[0].element_size() % 16 == 0
@@ -63,8 +72,8 @@ def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
 
     eff, slot: [G, T] int32; values: [G, T, D] float32|bfloat16; all
     contiguous on one CUDA device.  Returns a new [G, num_pe, capacity, D]
-    tensor of values' dtype.  Raises on any other input and if the launch
-    fails."""
+    tensor of values' dtype, each row written once.  Raises on any other
+    input and if a launch fails."""
     g, t, d = _check(values, eff, slot, "onehot_dispatch")
     if values.shape != (g, t, d):
         raise ValueError(f"values must be [{g}, {t}, D], got {tuple(values.shape)}")
@@ -72,10 +81,15 @@ def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
                          device=values.device)
     if packed.numel() >= 2**31 or g * t >= 2**31:
         raise ValueError("onehot_dispatch takes fewer than 2**31 cells and rows")
-    err = _entries()[0](packed.data_ptr(), eff.data_ptr(), slot.data_ptr(),
-                        values.data_ptr(), g, t, d, num_pe, capacity,
+    if packed.numel() == 0:
+        return packed
+    # the head map (one int32 per packed row) and the lists (one per tuple)
+    scratch = torch.empty(g * num_pe * capacity + g * t, dtype=torch.int32,
+                          device=values.device)
+    err = _entries()[0](packed.data_ptr(), scratch.data_ptr(), eff.data_ptr(),
+                        slot.data_ptr(), values.data_ptr(), g, t, d, num_pe, capacity,
                         _IS_BF16[values.dtype], _vec(d, packed, values),
-                        torch.cuda.current_stream(values.device).cuda_stream)
+                        _stream(values))
     if err:
         raise RuntimeError(f"onehot_dispatch launch failed: CUDA error {err}")
     onehot_dispatch.launches += 1
@@ -107,7 +121,7 @@ def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
                         packed.data_ptr(), 0 if gate is None else gate.data_ptr(),
                         g, t, d, num_pe, capacity, _IS_BF16[packed.dtype],
                         _vec(d, y, packed),
-                        torch.cuda.current_stream(packed.device).cuda_stream)
+                        _stream(packed))
     if err:
         raise RuntimeError(f"onehot_combine launch failed: CUDA error {err}")
     onehot_combine.launches += 1

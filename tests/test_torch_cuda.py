@@ -163,6 +163,67 @@ def test_cms_update_raises_on_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["add", "max"])
+def test_route_accumulate_launches_on_the_current_stream(cuda_device, combine):
+    """Captured into a CUDA graph (which records only the capturing
+    stream's work), the update runs once per replay."""
+    rng = np.random.default_rng(6)
+    t, pe, local = 4096, 31, 256
+    eff = torch.from_numpy(rng.integers(-1, pe + 1, t).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-1, local + 1, t).astype(np.int32))
+    val = torch.from_numpy(rng.integers(1, 100, t).astype(np.int32))
+    want = ref.pe_buffer_update(torch.zeros((pe, local), dtype=torch.int32), eff, idx,
+                                val, combine)
+    buf = torch.zeros((pe, local), dtype=torch.int32, device=cuda_device)
+    eff, idx, val = eff.to(cuda_device), idx.to(cuda_device), val.to(cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        route_accumulate(buf, eff, idx, val, combine)
+    torch.cuda.synchronize()
+    assert int(buf.abs().sum()) == 0
+    graph.replay()
+    graph.replay()
+    _assert_same(buf, 2 * want if combine == "add" else want, exact=True)
+
+
+@pytest.mark.cuda
+def test_route_accumulate_raises_on_what_it_does_not_take(cuda_device):
+    """The extension module refuses a wrong dtype, device, shape or layout
+    and the wrapper raises with its message; an empty chunk is taken and
+    launches nothing."""
+    buf = torch.zeros((3, 16), dtype=torch.int32, device=cuda_device)
+    i = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    val = torch.ones(8, dtype=torch.int32, device=cuda_device)
+    before = route_accumulate.launches
+    with pytest.raises(ValueError, match="eff must be"):
+        dispatch.pe_buffer_update(buf, i.long(), i, val, "add")
+    with pytest.raises(ValueError, match="idx must be"):
+        route_accumulate(buf, i, i[:7], val, "add")
+    with pytest.raises(ValueError, match="value must be"):
+        route_accumulate(buf, i, i, val.float(), "max")
+    with pytest.raises(ValueError, match="value must be"):
+        route_accumulate(buf, i, i, val.cpu(), "add")
+    with pytest.raises(ValueError, match="idx must be"):
+        route_accumulate(buf, i, i[:, None], val, "add")
+    with pytest.raises(ValueError, match="contiguous"):
+        route_accumulate(buf, i[::2], i[::2], val[::2], "add")
+    with pytest.raises(ValueError, match="contiguous"):
+        route_accumulate(buf.t(), i, i, val, "add")
+    with pytest.raises(ValueError, match="2-D"):
+        route_accumulate(buf[0], i, i, val, "add")
+    with pytest.raises(ValueError, match="2-D"):
+        route_accumulate(buf.double(), i, i, val.double(), "add")
+    with pytest.raises(ValueError, match="CUDA"):
+        route_accumulate(buf.cpu(), i.cpu(), i.cpu(), val.cpu(), "add")
+    with pytest.raises(ValueError, match="combine"):
+        route_accumulate(buf, i, i, val, "min")
+    assert route_accumulate.launches == before
+    assert route_accumulate(buf, i[:0], i[:0], val[:0], "add") is buf
+    torch.cuda.synchronize()
+    assert route_accumulate.launches == before and int(buf.abs().sum()) == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("app", ["histo", "hll", "hhd"])
 def test_executor_on_card_matches_cpu_and_oracle(cuda_device, app):
     """A short stream through Ditto on the card and on the CPU: the same X,
@@ -222,10 +283,13 @@ def _close(got, want, dtype, exact, magnitude=None):
 @pytest.mark.parametrize("unique", [True, False])
 @pytest.mark.parametrize("dtype", list(FLOATS))
 @pytest.mark.parametrize("g,t,pe,cap,d", [(8, 3072, 72, 60, 2048), (1, 24, 72, 4, 2048),
-                                          (2, 37, 5, 8, 100)])
+                                          (1, 384, 72, 7, 2048), (1, 1, 72, 60, 2048),
+                                          (2, 37, 5, 8, 100), (2, 37, 5, 8, 6)])
 def test_onehot_dispatch_vs_plain(cuda_device, g, t, pe, cap, d, dtype, unique):
-    """The prefill (8 groups of 512 tokens, top-6) and decode (4 slots)
-    shapes of moonshot at full width, and a ragged width (no 16-byte path)."""
+    """The prefill (8 groups of 512 tokens, top-6), decode (4 slots) and
+    serving-load decode (64 slots) shapes of moonshot at full width, one
+    tuple, and ragged widths (bf16 at 100 and both dtypes at 6 take the
+    scalar path)."""
     rng = np.random.default_rng(g * t + d)
     eff, slot = _moe_cells(rng, g, t, pe, cap, unique, cuda_device)
     x = torch.from_numpy(rng.standard_normal((g, t, d)).astype(np.float32))
@@ -236,6 +300,36 @@ def test_onehot_dispatch_vs_plain(cuda_device, g, t, pe, cap, d, dtype, unique):
     assert onehot_dispatch.launches == before + 1
     magnitude = ref.onehot_dispatch(eff, slot, x.float().abs(), pe, cap)
     _close(got, want, dtype, exact=unique, magnitude=magnitude)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("case", ["one_cell", "all_dropped"])
+def test_onehot_dispatch_fills_every_cell(cuda_device, case, dtype):
+    """Every kept tuple in one cell (a list of all T tuples, summed in
+    float), and every tuple dropped (all rows zero) into memory that the
+    caching allocator hands back after a NaN-filled tensor."""
+    g, t, pe, cap, d = 2, 3072, 72, 60, 2048
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((g, t, d)).astype(np.float32))
+    x = x.to(cuda_device, FLOATS[dtype])
+    eff = torch.full((g, t), 5, dtype=torch.int32, device=cuda_device)
+    slot = torch.full((g, t), 3, dtype=torch.int32, device=cuda_device)
+    if case == "all_dropped":
+        eff[0], slot[1] = pe, -1
+    # a freed NaN-filled block of packed's size, and one of the scratch's
+    # size filled with -7 (no list end), for the wrapper to be handed back
+    junk = torch.full((g, pe, cap, d), float("nan"), dtype=FLOATS[dtype], device=cuda_device)
+    torch.full((g * pe * cap + g * t,), -7, dtype=torch.int32, device=cuda_device)
+    reused = junk.data_ptr()
+    del junk
+    before = onehot_dispatch.launches
+    got = dispatch.onehot_dispatch(eff, slot, x, pe, cap)
+    assert got.data_ptr() == reused and onehot_dispatch.launches == before + 1
+    want = ref.onehot_dispatch(eff, slot, x, pe, cap)
+    assert bool(want.any()) == (case == "one_cell")
+    magnitude = ref.onehot_dispatch(eff, slot, x.float().abs(), pe, cap)
+    _close(got, want, dtype, exact=case == "all_dropped", magnitude=magnitude)
 
 
 @pytest.mark.cuda

@@ -186,3 +186,62 @@ def test_cuda_branch_of_dispatch_calls_only_kernels(monkeypatch):
     dispatch.flash_attention(x[:, :, None], x[:, :, None], x[:, :, None])
     assert called == ["_route_cuda", "_cms_cuda", "_dispatch_cuda", "_combine_cuda",
                       "_flash_cuda"]
+
+
+@pytest.mark.parametrize("entry", ["pe_buffer_update", "cms_update"])
+def test_cuda_branch_of_pe_updates_passes_tensors_through(monkeypatch, entry):
+    """On the card the two PE updates hand the caller's tensors to the
+    kernel wrapper as they are (no dtype or layout conversion): the
+    wrapper's checks are the only ones."""
+    seen = []
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda t: True)
+    for name in ("_route_cuda", "_cms_cuda"):
+        monkeypatch.setattr(dispatch, name, lambda *args: seen.append(args) or args[0])
+    eff = torch.zeros(3, dtype=torch.int64)          # int64: passed, not converted
+    value = torch.ones(6)[::2]                        # strided: passed, not copied
+    if entry == "pe_buffer_update":
+        args = (torch.zeros((2, 4), dtype=torch.int32), eff, eff, value)
+        dispatch.pe_buffer_update(*args, "max")
+        assert seen[0][4] == "max"
+    else:
+        args = (torch.zeros((2, 1, 4), dtype=torch.int32), eff, eff[:, None], value)
+        dispatch.cms_update(*args)
+    assert len(seen) == 1 and all(a is b for a, b in zip(seen[0], args))
+
+
+def test_scatter_accumulate_casts_indices_without_wrapping(monkeypatch):
+    """On the card scatter_accumulate hands the kernel int32 indices; an
+    int64 index outside [0, num_bins) becomes -1 first, so none wraps into
+    range (2**32 + 5 would cast to 5)."""
+    seen = []
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(dispatch, "_route_cuda",
+                        lambda *args: seen.append(args) or args[0])
+    flat = torch.tensor([0, 5, 2**32 + 5, -3, 96, 95])
+    dispatch.scatter_accumulate(flat, torch.ones(6), 96)
+    (_, eff, idx, value, combine), = seen
+    assert idx.dtype == torch.int32 and idx.is_contiguous()
+    assert idx.tolist() == [0, 5, -1, -1, -1, 95]
+    assert eff.tolist() == [0] * 6 and combine == "add"
+
+
+def test_build_names_each_library_by_its_source_and_every_header(tmp_path, monkeypatch):
+    """A library's file name hashes its source, every header under csrc/
+    and the flags, so an edited header is never served from a stale
+    library."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.h"\n')
+    (tmp_path / "common.h").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    names = [_build._target("k")[1].name]
+    (tmp_path / "common.h").write_text("// v2\n")
+    names.append(_build._target("k")[1].name)
+    (tmp_path / "more.cuh").write_text("// new\n")
+    names.append(_build._target("k")[1].name)
+    (tmp_path / "notes.txt").write_text("edited\n")
+    names.append(_build._target("k")[1].name)
+    (tmp_path / "k.cu").write_text('#include "common.h"\n// edited\n')
+    names.append(_build._target("k")[1].name)
+    assert all(n.startswith("libk-") and n.endswith(".so") for n in names)
+    assert len(set(names)) == 4 and names[2] == names[3]
