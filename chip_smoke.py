@@ -33,6 +33,26 @@ Phases (any failure exits non-zero before the result lines):
   6. profile 64 chunks of every configuration (torch.profiler): the card's
      time and the host's aten ops per chunk against the wall time per
      chunk; time the app's PrePE and the greedy scheduler alone.
+  7. PageRank (Fig. 8's R-MAT graph of degree 32, undirected, V = 2^14:
+     2^20 edges, 256 chunks): 10 iterations of edge_contributions on the
+     card, run with Ditto's X and apply_damping; every iteration's sums and
+     the final ranks bit-exact against the fixed-point oracle, within 1e-3
+     of the float reference, route_accumulate launched once per chunk;
+     X = 0 on the first iteration's tuples (Fig. 8's modeled speedup); and
+     its card time per chunk as in phase 6;
+  8. DP (radix 8 bits, 256 partitions, 16 a PriPE, 2^22 slots a PE, ~1.5 GB
+     of state) over the alpha-3 stream of phase 3 with Ditto's X: no cursor
+     at the capacity, partitions equal to the oracle as multisets, the
+     first 256 chunks identical on card and CPU slot for slot, no PE kernel
+     launched; then its card time per chunk as in phase 6;
+  9. the replicated static-dispatch baseline (16 full replicas) over the
+     first 26 * 2^20 tuples of the alpha-3 HISTO, HLL and HHD streams: the
+     aggregate equal to the flat oracle, the PE kernel once per chunk, and
+     Table II's modeled ratios against phase 3's routed runs;
+ 10. Ditto.tune on the card for HISTO on a 2^22-tuple alpha-1.5 stream:
+     the model pass's X equal to the CPU's, the measured pass over chunks
+     of 2048, 4096 and 8192, and the tuned plan through make_executor
+     bit-exact against the oracle.
 Then the MoE language model (moonshot-v1-16b-a3b at full width):
   A. hold onehot_dispatch, onehot_combine and flash_attention against their
      plain versions on CUDA tensors at the prefill and decode shapes:
@@ -58,7 +78,9 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      float32 copies of those inputs (the CUDA-core kernel), and dispatch also
      on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
-limit, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
+count windows of phases 3, 7, 9 and 10), and last {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -81,6 +103,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 SEED = 3
+PR_VERTICES, PR_ITERS = 2**14, 10   # the Q16.16 budget's largest V
+DP_CAPACITY = 2**22                 # slots a PE; 2.6x the busiest PE's 1.62 M (alpha 3)
+TUNE_TUPLES, TUNE_CHUNKS = 2**22, (2048, 4096, 8192)
 LM_LAYERS = 8                  # of 48: the float32 weights of 48 do not fit 80 GB
 PREFILL_SHAPE = (4, 1024)
 SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
@@ -288,7 +313,256 @@ def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
             "busy_share_profiled": device_us * 1e-6 / wall_s,
             "kernels_per_chunk": sum(e.count for e in kernels) / window,
             "top_kernels_us_per_chunk": {e.key[:80]: e.self_device_time_total / window
-                                         for e in top}}
+                                         for e in top},
+            # every scan kernel, with its launches: DP's own rank scan runs
+            # along the inner dimension, beside the mapper's outer one
+            "scan_kernels_per_chunk": {e.key[:80]: {"us": e.self_device_time_total / window,
+                                                    "launches": e.count / window}
+                                       for e in kernels if "scan" in e.key}}
+
+
+def pe_counts() -> dict:
+    from repro_torch.kernels.cms_update import cms_update
+    from repro_torch.kernels.route_accumulate import route_accumulate
+    return {"route_accumulate": route_accumulate.launches,
+            "cms_update": cms_update.launches}
+
+
+def pagerank_path(dev) -> tuple[dict, dict]:
+    """Phase 7: PageRank through Ditto on the card.  The most skewed graph
+    of benchmarks/fig8_pagerank.py (R-MAT, degree 32, undirected) at the
+    largest V of the Q16.16 budget: 2^20 edges, 256 chunks.  PR_ITERS
+    iterations of edge_contributions (card) -> run -> apply_damping (host),
+    each iteration's merged sums bit-exact against oracle_scatter.  Returns
+    the record and the launch counts of the iterations."""
+    from repro_torch.apps import pagerank
+    from repro_torch.core import Ditto
+    from repro_torch.data.graphs import out_degrees, rmat_graph
+    v = PR_VERTICES
+    t0 = time.perf_counter()
+    edges = rmat_graph(v, v * 32, seed=SEED, undirected=True)
+    deg = out_degrees(edges, v)
+    data_s = time.perf_counter() - t0
+    n_chunks = len(edges) // CHUNK
+    assert len(edges) == n_chunks * CHUNK, len(edges)
+    d = Ditto(pagerank.make_spec(v, 16), chunk_size=CHUNK, device=dev)
+    x = d.select(edges[:, 1])
+    impl = d.generate([x])[0]
+    edges_d = torch.as_tensor(edges, device=dev)
+    deg_d = torch.as_tensor(deg, device=dev)
+    rank = want = pagerank.init_rank(v)
+    run_s, iter_s, first = 0.0, 0.0, None
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    for it in range(PR_ITERS):
+        t0 = time.perf_counter()
+        contrib = pagerank.edge_contributions(edges_d, torch.as_tensor(rank, device=dev),
+                                              deg_d)
+        t1 = time.perf_counter()
+        sums, stats = impl.run(contrib.view(n_chunks, CHUNK, 2))
+        torch.cuda.synchronize()
+        run_s += time.perf_counter() - t1
+        sums = sums.cpu().numpy()
+        rank = pagerank.apply_damping(sums, v)
+        iter_s += time.perf_counter() - t0
+        oracle = pagerank.oracle_scatter(edges, want, deg, v, 16)
+        assert np.array_equal(sums, oracle), f"pagerank: iteration {it} differs from the oracle"
+        want = pagerank.apply_damping(oracle, v)
+        if first is None:
+            first = (contrib, float(stats.modeled_cycles.double().sum()))
+    counts = pe_counts()                  # ---- to here
+    assert counts == {"route_accumulate": PR_ITERS * n_chunks, "cms_update": 0}, counts
+    assert not any(lm_counts().values()), lm_counts()
+    assert np.array_equal(rank, want), "pagerank: final ranks differ from the oracle loop"
+    got = rank.astype(np.float64) / pagerank.ONE / v
+    ref_err = float(np.abs(got - pagerank.pagerank_reference(edges, v, iters=PR_ITERS)).max())
+    assert ref_err < 1e-3, f"pagerank: {ref_err} from the float reference"
+    # Fig. 8's row: X = 0 on iteration 1's tuples, against Ditto's X
+    contrib, cycles_x = first
+    base, stats0 = d.generate([0])[0].run(contrib.view(n_chunks, CHUNK, 2))
+    assert np.array_equal(base.cpu().numpy(), pagerank.oracle_scatter(
+        edges, pagerank.init_rank(v), deg, v, 16)), "pagerank: X = 0 differs"
+    cycles_0 = float(stats0.modeled_cycles.double().sum())
+    n = len(edges)
+    rec = {"vertices": v, "edges": n, "chunks": n_chunks, "iterations": PR_ITERS,
+           "num_pri": 16, "num_sec": x, "max_in_degree": int(np.bincount(edges[:, 1]).max()),
+           "graph_s": data_s, "run_s": run_s, "tuples_per_s": PR_ITERS * n / run_s,
+           "ms_per_chunk": 1e3 * run_s / (PR_ITERS * n_chunks),
+           "iteration_s": iter_s / PR_ITERS,
+           "modeled_mteps_x0": n / cycles_0, "modeled_mteps_ditto": n / cycles_x,
+           "modeled_speedup_vs_x0": cycles_0 / cycles_x,
+           "max_abs_err_vs_float_reference": ref_err, "launches": counts,
+           "oracle_exact": True,
+           "profile": profile_chunks("pagerank", d.spec, contrib, x, dev)}
+    return rec, counts
+
+
+def dp_path(dev, stream) -> dict:
+    """Phase 8: DP (radix 8 bits: 256 partitions, 16 a PriPE) through Ditto
+    on the card over ``stream``, with Ditto's X.  No cursor may reach the
+    capacity; the partitions must equal the oracle as multisets; the first
+    PARITY_CHUNKS chunks must give identical regions on card and CPU; DP's
+    PE update is plain PyTorch, so neither PE kernel may launch."""
+    from repro_torch.apps import dp
+    from repro_torch.core import Ditto
+    spec = dp.make_spec(8, 16, DP_CAPACITY)
+    d = Ditto(spec, chunk_size=CHUNK, device=dev)
+    impl = d.build(stream[:, 0])
+    x = impl.num_sec
+    chunks = d.chunk(stream)
+    n_chunks = chunks.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()                        # ---- the main path from here
+    t0 = time.perf_counter()
+    bufs, stats = impl.run(chunks)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = pe_counts()                  # ---- to here
+    assert counts == {"route_accumulate": 0, "cms_update": 0}, counts
+    assert not any(lm_counts().values()), lm_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del chunks
+    max_cursor = int(bufs.cursor.max())
+    assert max_cursor < DP_CAPACITY, \
+        f"dp: a PE wrote {max_cursor} tuples, capacity {DP_CAPACITY}: raise the capacity"
+    t0 = time.perf_counter()
+    parts = dp.partitions_from_buffers(bufs, 256)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = dp.oracle(stream, 8)
+    assert sum(len(p) for p in parts) == len(stream)
+    for p, (got, ref) in enumerate(zip(parts, want)):
+        assert dp.multiset_equal(got, ref), f"dp: partition {p} differs from the oracle"
+    check_s = time.perf_counter() - t0
+    cursors = bufs.cursor.tolist()
+    del bufs, parts, want
+    torch.cuda.empty_cache()
+    # host time of DP's PE update alone on the first chunk as routed (into
+    # small regions, and always from the same cursors: the update returns
+    # new cursors and its cost does not depend on the capacity)
+    small = dp.make_spec(8, 16, 1 << 16)
+    eff, idx, value = chunk_inputs(small, stream, x, dev)
+    regions = small.init_buffer(16 + x, dev)
+    update_ms = host_ms(lambda: small.pe_update(regions, eff, idx, value))
+    # card against CPU, slot for slot
+    head = stream[:PARITY_CHUNKS * CHUNK]
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        dd = Ditto(spec, chunk_size=CHUNK, device=where)
+        b, st = dd.generate([x])[0].run(dd.chunk(head))
+        outs.append(({f: getattr(b, f).cpu() for f in ("out", "cursor", "dst_part")},
+                     st.max_load.cpu()))
+        del b
+    (b_gpu, l_gpu), (b_cpu, l_cpu) = outs
+    for f in b_gpu:
+        assert torch.equal(b_gpu[f], b_cpu[f]), f"dp: card and CPU differ in {f}"
+    assert torch.equal(l_gpu, l_cpu), "dp: card and CPU differ in ExecStats.max_load"
+    del outs, b_gpu, b_cpu
+    torch.cuda.empty_cache()
+    return {"config": "dp_a3", "tuples": len(stream), "chunks": n_chunks, "radix_bits": 8,
+            "partitions": 256, "num_pri": 16, "num_sec": x, "capacity_per_pe": DP_CAPACITY,
+            "max_cursor": max_cursor, "cursors": cursors,
+            "state_gb": (16 + x) * DP_CAPACITY * 12 / 1e9, "peak_mem_gb": peak_gb,
+            "run_s": run_s, "tuples_per_s": len(stream) / run_s,
+            "ms_per_chunk": 1e3 * run_s / n_chunks,
+            "modeled_tuples_per_cycle": len(stream) / float(stats.modeled_cycles.double().sum()),
+            "pe_update_host_ms": update_ms,
+            "partitions_read_s": read_s, "oracle_check_s": check_s,
+            "cpu_parity_chunks": PARITY_CHUNKS, "launches": counts, "oracle_exact": True}
+
+
+def baseline_path(dev, cases, routed) -> tuple[list, dict]:
+    """Phase 9: the replicated static-dispatch baseline (16 replicas, tuple
+    i to PE i % 16) over the first N_TUPLES tuples of each phase-3 stream;
+    the aggregate must equal the app's flat oracle (num_pri = 1) and the PE
+    kernel launch once per chunk.  Beside it, Table II's modeled ratios
+    against the routed runs of phase 3 (``routed``: their tuples/s, and
+    their modeled cycles at Ditto's X and at X = 0 over the same chunks)."""
+    from repro_torch.core import baseline
+    recs, total = [], {"route_accumulate": 0, "cms_update": 0}
+    for cfg, mk, stream, oracle, kernel in cases:
+        stream = stream[:N_TUPLES]
+        run = baseline.make_replicated_executor(mk(1), 16, CHUNK, device=dev)
+        chunks = torch.as_tensor(stream.reshape(-1, CHUNK, 2), device=dev)
+        n_chunks = chunks.shape[0]
+        torch.cuda.synchronize()
+        reset_counts()                    # ---- the main path from here
+        t0 = time.perf_counter()
+        agg, st = run(chunks)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = pe_counts()              # ---- to here
+        for k, c in counts.items():
+            want = n_chunks if k == kernel else 0
+            assert c == want, f"baseline {cfg}: {k} launched {c} times, expected {want}"
+            total[k] += c
+        assert np.array_equal(agg.cpu().numpy(), oracle(stream[:, 0])), \
+            f"baseline {cfg}: the aggregate differs from the flat oracle"
+        cycles = float(st["chunk_cycles"].double().sum()) + float(st["merge_cycles"])
+        r = routed[cfg]
+        recs.append({
+            "config": cfg, "tuples": len(stream), "chunks": n_chunks, "replicas": 16,
+            "run_s": run_s, "tuples_per_s": len(stream) / run_s,
+            "ms_per_chunk": 1e3 * run_s / n_chunks,
+            "routed_tuples_per_s": r["tuples_per_s"], "routed_num_sec": r["num_sec"],
+            "replica_bytes_per_pe": baseline.replica_buffer_bytes(mk(1), 16),
+            "routed_bytes_per_pe": baseline.routed_buffer_bytes(mk(16), 16, 0),
+            "bu_saving": baseline.replica_buffer_bytes(mk(1), 16)
+            / baseline.routed_buffer_bytes(mk(16), 16, 0),
+            "modeled_thro_vs_replication_x0": cycles / r["cycles_x0"],
+            "modeled_thro_vs_replication_ditto": cycles / r["cycles"],
+            "launches": counts, "oracle_exact": True})
+        del chunks, agg
+    return recs, total
+
+
+def tune_path(dev) -> tuple[dict, dict]:
+    """Phase 10: Ditto.tune on the card (model pass, then the measured pass
+    over three chunk sizes) for HISTO on a TUNE_TUPLES alpha-1.5 stream; the
+    model pass must pick the X the CPU picks, and the tuned plan must drive
+    make_executor bit-exact against the oracle."""
+    from repro_torch.apps import histo
+    from repro_torch.core import Ditto, make_executor
+    from repro_torch.data.zipf import zipf_tuples
+    stream = zipf_tuples(TUNE_TUPLES, 1 << 20, 1.5, seed=SEED)
+    spec = histo.make_spec(512, 1 << 20, 16)
+    keys = stream[:, 0]
+    model_cpu = Ditto(spec, chunk_size=CHUNK, device="cpu").tune(keys)
+    model = Ditto(spec, chunk_size=CHUNK, device=dev).tune(keys)
+    assert (model.num_sec, model.cycles_per_tuple) == (model_cpu.num_sec,
+                                                        model_cpu.cycles_per_tuple), \
+        f"tune: the card's model pass picked X={model.num_sec}, the CPU's {model_cpu.num_sec}"
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    t0 = time.perf_counter()
+    tuned = Ditto(spec, chunk_size=CHUNK, device=dev).tune(
+        keys, measure=True, chunk_sizes=TUNE_CHUNKS)
+    tune_s = time.perf_counter() - t0
+    tune_counts = pe_counts()
+    chunk = tuned.chunk_size
+    chunks = torch.as_tensor(stream.reshape(-1, chunk, 2), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    merged, _ = make_executor(spec, tuned, device=dev)(chunks, tuned.route_plan)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = pe_counts()                  # ---- to here
+    cands = tuned.measured_candidates
+    # each candidate: one warm-up pass and two timed passes of 4 chunks
+    assert tune_counts == {"route_accumulate": 3 * 4 * len(cands), "cms_update": 0}, tune_counts
+    assert counts == {"route_accumulate": chunks.shape[0], "cms_update": 0}, counts
+    assert tuned.source == "measured" and {c["chunk_size"] for c in cands} == set(TUNE_CHUNKS)
+    assert np.array_equal(merged.cpu().numpy(), histo.oracle(keys, 512, 1 << 20, 16)), \
+        "tune: the tuned run differs from the oracle"
+    total = {k: tune_counts[k] + counts[k] for k in counts}
+    return {"config": "histo_a1.5", "tuples": len(stream), "model_num_sec": model.num_sec,
+            "model_num_sec_cpu": model_cpu.num_sec,
+            "model_cycles_per_tuple": model.cycles_per_tuple,
+            "default_cycles_per_tuple": model.default_cycles_per_tuple,
+            "tuned": tuned.to_record(), "tune_s": tune_s, "run_s": run_s,
+            "tuples_per_s": len(stream) / run_s, "ms_per_chunk": 1e3 * run_s / chunks.shape[0],
+            "launches": total, "oracle_exact": True}, total
 
 
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
@@ -468,9 +742,7 @@ def lm_path(dev):
                                                 "cache": engine.cache, "cache_len": lens})
     torch.cuda.synchronize()
     counts = lm_counts()                  # ---- to here
-    from repro_torch.kernels.cms_update import cms_update
-    from repro_torch.kernels.route_accumulate import route_accumulate
-    assert route_accumulate.launches == cms_update.launches == 0
+    assert not any(pe_counts().values()), pe_counts()
 
     assert logits.shape == (*PREFILL_SHAPE, cfg.vocab) and logits.dtype == cfg.cdtype
     assert bool(torch.isfinite(logits).all()), "prefill logits are not finite"
@@ -750,8 +1022,8 @@ def main() -> int:
               "the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO / "src"))
-    from repro_torch.apps import hhd, histo, hll
-    from repro_torch.core import Ditto
+    from repro_torch.apps import dp, hhd, histo, hll
+    from repro_torch.core import Ditto, perfmodel
     from repro_torch.core.profiler import workload_hist
     from repro_torch.core.scheduler import schedule_secpes
     from repro_torch.core.types import ExecStats
@@ -797,7 +1069,7 @@ def main() -> int:
          lambda k: hhd.oracle(k, 4, 1024, 16), cms_update, False),
     ]
     launches = {"route_accumulate": 0, "cms_update": 0}
-    results, picked = [], {}
+    results, picked, routed = [], {}, {}
     for cfg, spec, tuples, oracle, kernel, ragged in configs:
         d = Ditto(spec, chunk_size=CHUNK, device=dev)
         assert d.num_pri == 16
@@ -814,8 +1086,7 @@ def main() -> int:
         merged, stats = impl.run(chunks, mask=mask)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {"route_accumulate": route_accumulate.launches,
-                  "cms_update": cms_update.launches}
+        counts = pe_counts()
         for k, c in counts.items():
             launches[k] += c
             want = n_chunks if k == kernel.__name__ else 0
@@ -826,6 +1097,15 @@ def main() -> int:
         assert got.shape == want.shape and np.array_equal(got, want), \
             f"{cfg}: merged buffers differ from the numpy oracle"
         cycles = float(stats.modeled_cycles.double().sum())
+        # modeled cycles over the chunks of the first N_TUPLES tuples, at
+        # Ditto's X and at X = 0 (whose busiest PE is the busiest PriPE)
+        body = N_TUPLES // CHUNK
+        routed[cfg] = {
+            "tuples_per_s": len(tuples) / run_s, "num_sec": impl.num_sec,
+            "cycles": float(stats.modeled_cycles[:body].double().sum()),
+            "cycles_x0": float(perfmodel.chunk_cycles(
+                CHUNK, stats.workload[:body].max(dim=1).values, d.mem_width_tuples,
+                spec.ii_pe).double().sum())}
         rec = {"config": cfg, "tuples": len(tuples), "chunks": n_chunks,
                "num_pri": d.num_pri, "num_sec": impl.num_sec,
                "run_s": run_s, "tuples_per_s": len(tuples) / run_s,
@@ -949,6 +1229,39 @@ def main() -> int:
     for x in sorted(set(picked.values())):
         host[f"schedule_secpes_x{x}"] = host_ms(lambda: schedule_secpes(hist, x))
     print("host_ms", json.dumps(host))
+
+    # ---- 7. PageRank on the most skewed Fig. 8 graph at V = 2^14
+    rec, counts = pagerank_path(dev)
+    launches["route_accumulate"] += counts["route_accumulate"]
+    print("pagerank", json.dumps(rec))
+    torch.cuda.empty_cache()
+
+    # ---- 8. DP over the alpha-3 stream, and its card time per chunk
+    rec = dp_path(dev, stream_3)
+    rec["profile"] = profile_chunks("dp_a3", dp.make_spec(8, 16, DP_CAPACITY), stream_3,
+                                    rec["num_sec"], dev)
+    print("dp", json.dumps(rec))
+    torch.cuda.empty_cache()
+
+    # ---- 9. the replicated baseline on the alpha-3 streams
+    recs, counts = baseline_path(dev, [
+        ("histo_a3", lambda m: histo.make_spec(512, 1 << 20, m), stream_3,
+         lambda k: histo.oracle(k, 512, 1 << 20, 1), "route_accumulate"),
+        ("hll_a3_ragged", lambda m: hll.make_spec(12, m), stream_hll,
+         lambda k: hll.oracle(k, 12, 1), "route_accumulate"),
+        ("hhd_a3", lambda m: hhd.make_spec(4, 1024, m), stream_3,
+         lambda k: hhd.oracle(k, 4, 1024, 1), "cms_update")], routed)
+    for k, c in counts.items():
+        launches[k] += c
+    print("baseline", json.dumps(recs))
+
+    # ---- 10. the autotuner on the card
+    rec, counts = tune_path(dev)
+    launches["route_accumulate"] += counts["route_accumulate"]
+    print("tune", json.dumps(rec))
+    torch.cuda.empty_cache()
+    for k in kernels:                     # every main path's count, summed
+        k["launches"] = launches[k["name"]]
 
     # ---- A. the MoE LM's kernels against their plain versions
     lm_err = check_lm_kernels(dev)

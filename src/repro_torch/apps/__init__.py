@@ -1,5 +1,5 @@
-"""Paper applications of this slice (Table I): HISTO, HLL and HHD, each a
-``DittoSpec``."""
-from repro_torch.apps import hhd, histo, hll
+"""The paper's five applications (Table I), each a ``DittoSpec``: HISTO,
+HLL, HHD, PageRank and DP."""
+from repro_torch.apps import dp, hhd, histo, hll, pagerank
 
-__all__ = ["histo", "hll", "hhd"]
+__all__ = ["histo", "dp", "pagerank", "hll", "hhd"]

@@ -43,3 +43,12 @@ def oracle(keys: np.ndarray, num_bins: int, key_domain: int,
     out = np.zeros((num_pri, -(-num_bins // num_pri)), np.int64)
     np.add.at(out, (dst, idx), 1)
     return out
+
+
+def flat_histogram(merged: np.ndarray, num_bins: int) -> np.ndarray:
+    """[M, bins_per_pe] partitioned buffers -> flat [num_bins] histogram
+    (bin b = merged[b % M, b // M]): data routing gives the final bins
+    directly, with no aggregation on the host (paper §II-A)."""
+    m, _ = merged.shape
+    b = np.arange(num_bins)
+    return merged[b % m, b // m]

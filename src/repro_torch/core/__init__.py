@@ -1,10 +1,15 @@
 """Ditto core in PyTorch: types, mapper, profiler, scheduler, merger,
-perfmodel, executor, analyzer and the framework front-end."""
+perfmodel, executor, analyzer, the framework front-end, the replicated
+static-dispatch baseline and the router's reference functions."""
+from repro_torch.core.baseline import (make_replicated_executor,
+                                       replica_buffer_bytes,
+                                       routed_buffer_bytes)
 from repro_torch.core.executor import (ExecState, ResumableExecutor,
                                        init_state, make_executor,
                                        make_resumable_executor,
                                        make_static_plan, with_plan)
 from repro_torch.core.framework import Ditto, GeneratedImpl, tune_pe_counts
+from repro_torch.core.router import decode_filter, route_dense
 from repro_torch.core.types import (PROFILE_MODE, RUN_MODE, DittoSpec,
                                     ExecStats, RoutePlan)
 
@@ -13,4 +18,6 @@ __all__ = [
     "Ditto", "GeneratedImpl", "tune_pe_counts", "ExecState",
     "ResumableExecutor", "init_state", "make_executor",
     "make_resumable_executor", "make_static_plan", "with_plan",
+    "make_replicated_executor", "replica_buffer_bytes", "routed_buffer_bytes",
+    "decode_filter", "route_dense",
 ]

@@ -18,13 +18,14 @@ Two shapes share one chunk step (``_build_chunk_step``):
 Both take an optional per-tuple validity mask beside the chunks: a masked
 tuple goes to the sentinel PriPE M and effective PE M+X, which every
 histogram and buffer update drops, so a padded chunk is bit-identical to a
-shorter one.
+shorter one.  Both also take a ``TunedPlan`` (``repro_torch.tune``) in
+place of ``num_pri``.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -43,7 +44,7 @@ def default_pe_update(buffers, eff, idx, value, combine: str):
 
 @dataclasses.dataclass(frozen=True)
 class ExecState:
-    buffers: torch.Tensor
+    buffers: Any            # [M+X, *local] tensor, or a dataclass of them (DP)
     plan: RoutePlan
     rr_base: torch.Tensor
     mode: torch.Tensor
@@ -95,6 +96,28 @@ def with_plan(state: ExecState, plan: RoutePlan) -> ExecState:
     return dataclasses.replace(
         state, plan=plan,
         mode=_scalar(RUN_MODE, torch.int32, state.mode.device))
+
+
+def _resolve_config(num_pri, num_sec, chunk_size,
+                    mem_width_tuples) -> tuple[int, int, int, int]:
+    """(num_pri | TunedPlan, num_sec, chunk_size, mem_width_tuples) ->
+    explicit executor knobs; an argument given explicitly wins over the
+    plan's."""
+    if hasattr(num_pri, "executor_kwargs"):
+        tuned = num_pri.executor_kwargs()
+        num_pri = tuned["num_pri"]
+        if num_sec is None:
+            num_sec = tuned["num_sec"]
+        if chunk_size is None:
+            chunk_size = tuned["chunk_size"]
+        if mem_width_tuples is None:
+            mem_width_tuples = tuned["mem_width_tuples"]
+    if num_sec is None or chunk_size is None:
+        raise TypeError("an executor needs (num_pri, num_sec, chunk_size) "
+                        "or a TunedPlan in place of num_pri")
+    if mem_width_tuples is None:
+        mem_width_tuples = 8
+    return num_pri, num_sec, chunk_size, mem_width_tuples
 
 
 def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
@@ -244,15 +267,21 @@ class ResumableExecutor:
             stats.append(s)
         return state, _stack_stats(stats, state, self.num_pri)
 
-    def merge_state(self, state: ExecState) -> torch.Tensor:
-        """Merged [M, *local] buffers; the SecPE shadows stay intact."""
+    def merge_state(self, state: ExecState):
+        """Merged [M, *local] buffers; the SecPE shadows stay intact.  A
+        spec with its own ``merge`` (DP) gets ``spec.merge(buffers, plan)``
+        instead."""
+        if self.spec.merge is not None:
+            return self.spec.merge(state.buffers, state.plan)
         return merger.merge_buffers(state.buffers, state.plan.assignment,
                                     self.num_pri, self.spec.combine)
 
 
-def make_resumable_executor(spec: DittoSpec, num_pri: int, num_sec: int,
-                            chunk_size: int, *, profile_chunks: int = 1,
-                            threshold: float = 0.0, mem_width_tuples: int = 8,
+def make_resumable_executor(spec: DittoSpec, num_pri: Any,
+                            num_sec: Optional[int] = None,
+                            chunk_size: Optional[int] = None, *,
+                            profile_chunks: int = 1, threshold: float = 0.0,
+                            mem_width_tuples: Optional[int] = None,
                             static_plan: bool = False,
                             device="cuda") -> ResumableExecutor:
     """The suspend/resume shape of ``make_executor`` (same knobs)::
@@ -262,7 +291,16 @@ def make_resumable_executor(spec: DittoSpec, num_pri: int, num_sec: int,
         state, stats = res.run_chunks(state, chunks_a)
         snapshot = res.merge_state(state)
         state, stats = res.run_chunks(state, chunks_b, mask)
+
+    A spec with its own ``merge`` keeps per-PE output regions that cannot
+    be re-merged mid-stream, so it takes ``threshold=0.0`` only.
     """
+    num_pri, num_sec, chunk_size, mem_width_tuples = _resolve_config(
+        num_pri, num_sec, chunk_size, mem_width_tuples)
+    if spec.merge is not None and threshold > 0.0:
+        raise ValueError(
+            f"{spec.name}: non-decomposable applications keep per-PE output "
+            "regions and cannot re-merge mid-stream; use threshold=0.0")
     device = resolve_device(device)
     pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
     step = _build_chunk_step(
@@ -273,20 +311,23 @@ def make_resumable_executor(spec: DittoSpec, num_pri: int, num_sec: int,
                              chunk_size=chunk_size, device=device, step=step)
 
 
-def make_executor(spec: DittoSpec, num_pri: int, num_sec: int,
-                  chunk_size: int, *, profile_chunks: int = 1,
-                  threshold: float = 0.0, mem_width_tuples: int = 8,
+def make_executor(spec: DittoSpec, num_pri: Any, num_sec: Optional[int] = None,
+                  chunk_size: Optional[int] = None, *, profile_chunks: int = 1,
+                  threshold: float = 0.0, mem_width_tuples: Optional[int] = None,
                   static_plan: bool = False,
-                  device="cuda") -> Callable[..., tuple[torch.Tensor, ExecStats]]:
+                  device="cuda") -> Callable[..., tuple[Any, ExecStats]]:
     """Build the streaming executor.
 
-    spec: the application; num_pri/num_sec: M PriPEs and X SecPEs;
+    spec: the application; num_pri/num_sec: M PriPEs and X SecPEs, or a
+    ``TunedPlan`` in place of num_pri (it supplies num_sec, chunk_size and
+    mem_width_tuples unless given here);
     chunk_size: tuples per chunk (the profiling window granularity);
     profile_chunks: chunks of profiling before a plan is generated;
     threshold: throughput-drop fraction that triggers a re-schedule (0.0
-    disables it); mem_width_tuples: W of Eq. 1; static_plan: skip runtime
-    profiling (the caller passes a plan); device: where the state lives and
-    the kernels run ("cuda" raises without a CUDA device).
+    disables it); mem_width_tuples: W of Eq. 1 (8 by default);
+    static_plan: skip runtime profiling (the caller passes a plan);
+    device: where the state lives and the kernels run ("cuda" raises
+    without a CUDA device).
 
     Returns fn(tuples, plan=None, mask=None) -> (merged buffers, ExecStats);
     ``tuples`` is [num_chunks, chunk_size, ...], ``mask`` an optional

@@ -3,7 +3,8 @@
 Workflow: the developer writes a ``DittoSpec``; ``tune_pe_counts`` balances
 the pipeline (Eq. 1); ``generate`` builds the family of implementations
 X = 0..M-1; ``build`` samples the dataset, runs the skew analyzer (Eq. 2)
-and returns the selected implementation.  Every implementation runs on the
+and returns the selected implementation; ``tune`` searches X and the chunk
+size with the autotuner (``repro_torch.tune``).  Every implementation runs on the
 framework's ``device`` ("cuda" by default, which raises without a CUDA
 device).
 """
@@ -84,6 +85,26 @@ class Ditto:
               online: bool = False) -> GeneratedImpl:
         x = self.select(keys, tolerance=tolerance, online=online)
         return self.generate([x])[0]
+
+    def tune(self, keys: np.ndarray, *, tolerance: float = 0.1,
+             sample_frac: float = 0.001, measure: bool = False,
+             chunk_sizes: Optional[Sequence[int]] = None, **kw):
+        """Perfmodel-guided autotune at this framework's M, on its device.
+
+        ``select`` is the paper's Eq. 2 X pick alone; ``tune`` also checks it
+        against the X extremes with the port-limited cycle model and, with
+        ``measure``, picks among ``chunk_sizes`` (default: this framework's
+        chunk size) by measured wall clock.  ``kw`` goes to
+        ``repro_torch.tune.autotune``.  Returns a ``TunedPlan`` that
+        ``make_executor`` takes in place of ``num_pri``.
+        """
+        from repro_torch.tune import SearchSpace, autotune
+        sample = analyzer.sample_dataset(np.asarray(keys), frac=sample_frac)
+        space = SearchSpace(m_candidates=(self.num_pri,),
+                            chunk_sizes=tuple(chunk_sizes or (self.chunk_size,)))
+        return autotune(self.spec, sample, mem_width_bytes=self.mem_width_bytes,
+                        space=space, tolerance=tolerance, measure=measure,
+                        device=self.device, **kw)
 
     def chunk(self, data: np.ndarray) -> torch.Tensor:
         """A flat stream whose length is a multiple of the chunk size ->

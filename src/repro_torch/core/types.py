@@ -61,10 +61,15 @@ class DittoSpec:
     """Application specification (the paper's Listing 2).
 
     pre: (tuples [T, ...], M) -> (dst [T] in [0, M), idx, value [T]).
-    init_buffer: (num_pe, device) -> buffers [num_pe, *local].
+    init_buffer: (num_pe, device) -> buffers [num_pe, *local] (a tensor, or
+      a frozen dataclass of tensors with a leading PE axis).
     combine: 'add' | 'max', the PE update and the SecPE merge.
     pe_update: optional custom (buffers, eff, idx, value) -> buffers; it may
       fold into ``buffers`` in place.
+    merge: optional custom (buffers, plan) -> merged, for a non-decomposable
+      application (the paper's data partitioning), whose buffers may be a
+      frozen dataclass of tensors.  Without it the executor folds the SecPE
+      shadows into their PriPEs by ``combine``.
     """
 
     name: str
@@ -72,6 +77,7 @@ class DittoSpec:
     init_buffer: Callable[[int, torch.device], torch.Tensor]
     combine: str = "add"
     pe_update: Optional[Callable[..., torch.Tensor]] = None
+    merge: Optional[Callable[..., object]] = None
     tuple_bytes: int = 8
     ii_pre: int = 1
     ii_pe: int = 2

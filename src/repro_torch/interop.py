@@ -2,7 +2,7 @@
 
 Ditto's executor has no weights: its parameters are the ``RoutePlan`` (a
 static or tuned plan) and the ``ExecState`` (a stream's state mid-flight,
-as a checkpoint holds it).  The language models do: their params pytree
+as a checkpoint holds it, DP's output regions included).  The language models do: their params pytree
 has one layout in both packages.  Convert the JAX pytrees to numpy on
 their side (for example ``jax.tree.map(np.asarray, params)``) and build the
 port's objects here, so both packages can start from the same plan, the
@@ -16,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.apps.dp import DPBuffers
 from repro_torch.core.executor import ExecState
 from repro_torch.core.profiler import MonitorState
 from repro_torch.core.types import RoutePlan, resolve_device
@@ -33,13 +34,26 @@ def plan_from_numpy(assignment, table, counter, device="cuda") -> RoutePlan:
                      counter=_tensor(counter, np.int32, device))
 
 
+def dp_buffers_from_numpy(out, cursor, dst_part, device="cuda") -> DPBuffers:
+    """DP's ``DPBuffers`` from numpy copies of its three arrays (a JAX
+    ``DPBuffers`` unpacks into them in this order)."""
+    device = resolve_device(device)
+    return DPBuffers(out=_tensor(out, np.int32, device),
+                     cursor=_tensor(cursor, np.int32, device),
+                     dst_part=_tensor(dst_part, np.int32, device))
+
+
 def state_from_numpy(arrays: Mapping, device="cuda") -> ExecState:
     """An ``ExecState`` from a nested dict of numpy arrays with the field
-    names of ``ExecState`` (``plan`` and ``monitor`` nested in turn)."""
+    names of ``ExecState`` (``plan`` and ``monitor`` nested in turn).  The
+    buffers are one array, or DP's dict of ``out``, ``cursor`` and
+    ``dst_part``."""
     device = resolve_device(device)
-    plan, mon = arrays["plan"], arrays["monitor"]
+    plan, mon, buffers = arrays["plan"], arrays["monitor"], arrays["buffers"]
     return ExecState(
-        buffers=torch.as_tensor(np.array(arrays["buffers"]), device=device),
+        buffers=(dp_buffers_from_numpy(**buffers, device=device)
+                 if isinstance(buffers, Mapping)
+                 else torch.as_tensor(np.array(buffers), device=device)),
         plan=plan_from_numpy(plan["assignment"], plan["table"], plan["counter"],
                              device),
         rr_base=_tensor(arrays["rr_base"], np.int32, device),
@@ -52,7 +66,8 @@ def state_from_numpy(arrays: Mapping, device="cuda") -> ExecState:
 
 
 def state_to_numpy(state: ExecState) -> dict:
-    """The inverse of ``state_from_numpy``: a nested dict of numpy arrays."""
+    """The inverse of ``state_from_numpy``: a nested dict of numpy arrays
+    (dataclass buffers, DP's, become a dict of their fields)."""
     return {f.name: (state_to_numpy(v) if dataclasses.is_dataclass(v)
                      else v.detach().cpu().numpy())
             for f in dataclasses.fields(state)

@@ -454,3 +454,97 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
     layers = model.cfg.num_layers
     assert (onehot_dispatch.launches - counts[0], onehot_combine.launches - counts[1],
             flash_attention.launches - counts[2]) == (2 * layers, 2 * layers, layers)
+
+
+@pytest.mark.cuda
+def test_pagerank_scatter_on_card_equals_oracle(cuda_device):
+    """One PageRank scatter phase through Ditto on the card (edge
+    contributions on the card too): the oracle's sums bit for bit, and one
+    route_accumulate launch per chunk."""
+    from repro_torch.apps import pagerank
+    from repro_torch.data.graphs import out_degrees, rmat_graph
+    v = 1 << 12
+    edges = rmat_graph(v, v * 8, seed=4)                  # 2^16 edges: 16 chunks
+    deg = out_degrees(edges, v)
+    rank = pagerank.init_rank(v) + np.arange(v, dtype=np.int32)
+    d = Ditto(pagerank.make_spec(v, 16), chunk_size=4096, device=cuda_device)
+    impl = d.build(edges[:, 1])
+    assert impl.num_sec > 0
+    contrib = pagerank.edge_contributions(torch.as_tensor(edges, device=cuda_device),
+                                          torch.as_tensor(rank, device=cuda_device),
+                                          torch.as_tensor(deg, device=cuda_device))
+    before = route_accumulate.launches
+    merged, _ = impl.run(contrib.view(-1, 4096, 2))
+    torch.cuda.synchronize()
+    assert route_accumulate.launches - before == 16
+    np.testing.assert_array_equal(merged.cpu().numpy(),
+                                  pagerank.oracle_scatter(edges, rank, deg, v, 16))
+
+
+@pytest.mark.cuda
+def test_dp_card_equals_cpu(cuda_device):
+    """DP through Ditto on the card and on the CPU, with a masked ragged
+    tail: the same regions slot for slot, cursors and tags; no PE kernel
+    launches (DP's update is plain PyTorch on every device)."""
+    from repro_torch.apps import dp
+    tuples = zipf_tuples(4096 * 12 + 321, 1 << 20, 2.0, seed=8)
+    outs = []
+    before = (route_accumulate.launches, cms_update.launches)
+    for device in (cuda_device, torch.device("cpu")):
+        d = Ditto(dp.make_spec(8, 16, 1 << 15), chunk_size=4096, device=device)
+        impl = d.build(tuples[:, 0])
+        chunks, mask = d.chunk_masked(tuples)
+        bufs, _ = impl.run(chunks, mask=mask)
+        outs.append((impl.num_sec, bufs))
+    torch.cuda.synchronize()
+    assert (route_accumulate.launches, cms_update.launches) == before
+    (x_gpu, b_gpu), (x_cpu, b_cpu) = outs
+    assert x_gpu == x_cpu > 0 and int(b_cpu.cursor.max()) < 1 << 15
+    for name in ("out", "cursor", "dst_part"):
+        assert torch.equal(getattr(b_gpu, name).cpu(), getattr(b_cpu, name)), name
+    for got, want in zip(dp.partitions_from_buffers(b_gpu, 256), dp.oracle(tuples, 8)):
+        assert dp.multiset_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["histo", "hll", "hhd"])
+def test_replicated_baseline_on_card_equals_oracle(cuda_device, app):
+    """The static-dispatch baseline on the card: the flat oracle, and one PE
+    kernel launch per chunk (route_accumulate, or cms_update for HHD)."""
+    from repro_torch.core import make_replicated_executor
+    mk, oracle, kernel = {
+        "histo": (lambda m: histo.make_spec(512, 1 << 20, m),
+                  lambda k: histo.oracle(k, 512, 1 << 20, 1), route_accumulate),
+        "hll": (lambda m: hll.make_spec(12, m), lambda k: hll.oracle(k, 12, 1),
+                route_accumulate),
+        "hhd": (lambda m: hhd.make_spec(4, 1024, m), lambda k: hhd.oracle(k, 4, 1024, 1),
+                cms_update)}[app]
+    tuples = zipf_tuples(4096 * 10, 1 << 20, 3.0, seed=6)
+    run = make_replicated_executor(mk(1), 16, 4096, device=cuda_device)
+    before = kernel.launches
+    agg, stats = run(torch.as_tensor(tuples.reshape(10, 4096, 2), device=cuda_device))
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 10
+    np.testing.assert_array_equal(agg.cpu().numpy(), oracle(tuples[:, 0]))
+    assert stats["chunk_cycles"].shape == (10,) and stats["merge_cycles"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_ditto_tune_on_card_returns_a_plan(cuda_device):
+    """Ditto.tune on the card: the model pass picks what the CPU picks, the
+    measured pass returns a plan among its candidates, and the plan drives
+    make_executor on the card bit-exact against the oracle."""
+    from repro_torch.core import make_executor
+    tuples = zipf_tuples(1 << 17, 1 << 20, 1.5, seed=3)
+    spec = histo.make_spec(512, 1 << 20, 16)
+    model = Ditto(spec, device=cuda_device).tune(tuples[:, 0])
+    assert model.num_sec == Ditto(spec, device="cpu").tune(tuples[:, 0]).num_sec
+    plan = Ditto(spec, device=cuda_device).tune(tuples[:, 0], measure=True,
+                                                chunk_sizes=(2048, 4096))
+    assert plan.source == "measured" and plan.chunk_size in (2048, 4096)
+    assert plan.route_plan.table.is_cuda
+    merged, _ = make_executor(spec, plan, device=cuda_device)(
+        torch.as_tensor(tuples.reshape(-1, plan.chunk_size, 2), device=cuda_device),
+        plan.route_plan)
+    np.testing.assert_array_equal(merged.cpu().numpy(),
+                                  histo.oracle(tuples[:, 0], 512, 1 << 20, 16))
