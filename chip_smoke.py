@@ -52,7 +52,23 @@ Phases (any failure exits non-zero before the result lines):
  10. Ditto.tune on the card for HISTO on a 2^22-tuple alpha-1.5 stream:
      the model pass's X equal to the CPU's, the measured pass over chunks
      of 2048, 4096 and 8192, and the tuned plan through make_executor
-     bit-exact against the oracle.
+     bit-exact against the oracle;
+ 11. StreamEngine at serving size (M = 16, X = 14, chunks of 4096, 8 lanes,
+     every engine on the default obs bundle): HISTO with an online batch of
+     8 tenants at Zipf alpha 0-3, 2^22 - r_i tuples each (seven ragged
+     tails; 1024 batched chunks, ~32 M tuples in one flush) and a planned
+     batch of 5 tenants under per-tenant static plans (3 pad lanes); HHD, 8
+     tenants at alpha 3 (cms_update over lanes); HLL, 4 ragged tenants (4
+     pad lanes).  Every tenant equal to its oracle and, merged and every
+     ExecStats field, to its stream alone through make_executor; 64 chunks
+     of the online batch identical on card and CPU; pad lanes left as
+     init_state made them; each PE kernel once per batched chunk; the
+     Prometheus text through parse_prometheus and the trace's
+     executor.build / stream.flush / stream.batch spans.  Prints flush
+     seconds and tuples/s per engine, ms per batched chunk at L = 1, 2, 4
+     and 8 lanes, a profile of 16 batched chunks at L = 8, the flattened PE
+     launch against L per-lane launches (in turns), and the build monitor's
+     delta over the phase.
 Then the MoE language model (moonshot-v1-16b-a3b at full width):
   A. hold onehot_dispatch, onehot_combine and flash_attention against their
      plain versions on CUDA tensors at the prefill and decode shapes:
@@ -79,8 +95,8 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
-count windows of phases 3, 7, 9 and 10), and last {"ok": true, "device":
-{...}}.
+count windows of phases 3, 7, 9, 10 and 11: phase 11's windows are its four
+flushes), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -111,6 +127,11 @@ PREFILL_SHAPE = (4, 1024)
 SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
 LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
 LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
+STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
+STREAM_TUPLES, STREAM_SMALL = 2**22, 2**21    # a tenant of the online batch; of the others
+STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
+PARITY_LANE_CHUNKS = 64
+LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -280,24 +301,18 @@ def pe_host_pieces(entry, wrapper, via_dispatch, tensors, extra=()) -> dict:
         "dispatch_ms": host_ms(lambda: via_dispatch(*tensors), calls)}
 
 
-def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
-                   window: int = 64) -> dict:
-    """The card's kernel time per chunk (torch.profiler, kernel rows only)
-    against the wall time per chunk under the profiler, and the aten ops the
-    host issues per chunk (nested ops included), over ``window`` chunks
-    after ``warm`` chunks.  The profiler adds host time, so the busy share
-    it gives is a lower bound."""
+def profile_window(run, window: int) -> dict:
+    """Profile ``run()`` (``window`` chunk steps, synchronised at the end)
+    with torch.profiler: the card's kernel time, kernels and host aten ops
+    (nested ops included) per chunk step, against the wall time per step
+    under the profiler.  The profiler adds host time, so the busy share it
+    gives is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import make_resumable_executor
-    res = make_resumable_executor(spec, 16, num_sec, CHUNK, device=dev)
-    chunks = torch.as_tensor(tuples[:(warm + window) * CHUNK], device=dev).view(-1, CHUNK, 2)
-    state, _ = res.run_chunks(res.init_state(), chunks[:warm])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res.run_chunks(state, chunks[warm:])
+        run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     events = prof.key_averages()
@@ -306,7 +321,7 @@ def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
     host_ops = sum(e.count for e in events if e.device_type == DeviceType.CPU
                    and e.key.startswith("aten::"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"config": cfg, "chunks": window, "num_sec": num_sec,
+    return {"chunks": window,
             "host_aten_ops_per_chunk": host_ops / window,
             "device_us_per_chunk": device_us / window,
             "wall_ms_per_chunk_profiled": 1e3 * wall_s / window,
@@ -314,11 +329,23 @@ def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
             "kernels_per_chunk": sum(e.count for e in kernels) / window,
             "top_kernels_us_per_chunk": {e.key[:80]: e.self_device_time_total / window
                                          for e in top},
-            # every scan kernel, with its launches: DP's own rank scan runs
-            # along the inner dimension, beside the mapper's outer one
+            # every scan kernel, with its launches: the mapper's occurrence
+            # rank scans the outer dimension, DP's own rank the inner one
             "scan_kernels_per_chunk": {e.key[:80]: {"us": e.self_device_time_total / window,
                                                     "launches": e.count / window}
                                        for e in kernels if "scan" in e.key}}
+
+
+def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
+                   window: int = 64) -> dict:
+    """``profile_window`` over ``window`` chunks of one stream after
+    ``warm`` chunks."""
+    from repro_torch.core import make_resumable_executor
+    res = make_resumable_executor(spec, 16, num_sec, CHUNK, device=dev)
+    chunks = torch.as_tensor(tuples[:(warm + window) * CHUNK], device=dev).view(-1, CHUNK, 2)
+    state, _ = res.run_chunks(res.init_state(), chunks[:warm])
+    rec = profile_window(lambda: res.run_chunks(state, chunks[warm:]), window)
+    return {"config": cfg, "num_sec": num_sec, **rec}
 
 
 def pe_counts() -> dict:
@@ -563,6 +590,224 @@ def tune_path(dev) -> tuple[dict, dict]:
             "tuned": tuned.to_record(), "tune_s": tune_s, "run_s": run_s,
             "tuples_per_s": len(stream) / run_s, "ms_per_chunk": 1e3 * run_s / chunks.shape[0],
             "launches": total, "oracle_exact": True}, total
+
+
+def _assert_stats_equal(got, want, what: str):
+    """Every ExecStats field of ``got`` equal to ``want`` (tensors or numpy)."""
+    for f in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
+        a, b = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                for x in (getattr(got, f), getattr(want, f)))
+        assert a.dtype == b.dtype and np.array_equal(a, b), f"{what}: ExecStats.{f} differs"
+
+
+def _tree_equal(a, b) -> bool:
+    """Every leaf of two ExecStates / RoutePlans equal."""
+    if dataclasses.is_dataclass(a):
+        return all(_tree_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return torch.equal(a, b)
+
+
+def stream_path(dev, stream_3) -> tuple[dict, dict]:
+    """Phase 11: StreamEngine at serving size, every engine on the default
+    obs bundle.  HISTO (512 bins, domain 2^20): an online batch of 8
+    tenants at Zipf alpha STREAM_ALPHAS, 2^22 - r_i tuples each (r_0 = 0,
+    seven ragged tails), and a planned batch of 5 tenants with plans from
+    make_static_plan on a 0.1% sample, 2^21 tuples each (3 pad lanes); HHD
+    (depth 4, width 1024): 8 tenants at alpha 3, 2^21 each; HLL (p = 12,
+    domain 2^22): 4 ragged tenants (4 pad lanes).  M = 16, X = 14, chunks of
+    CHUNK, max_streams = STREAM_LANES.  Checks: every tenant equal to the
+    app's oracle and to its stream alone through make_executor on the card
+    (merged and every ExecStats field); the first PARITY_LANE_CHUNKS chunks
+    of the online batch identical on card and CPU; pad lanes left as
+    init_state made them; each PE kernel once per batched chunk; the
+    Prometheus text through parse_prometheus; the trace's spans.  Then the
+    lane sweep, a profile at L = 8, and the flattened PE launch against L
+    per-lane launches, in turns.  Returns the record and the launch counts
+    of the flush windows."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.apps import hhd, histo, hll
+    from repro_torch.core.executor import (_lane_pe_update, make_executor,
+                                           make_multistream_executor,
+                                           make_resumable_executor, make_static_plan,
+                                           stack_states, take_lanes, with_plan)
+    from repro_torch.core.profiler import workload_hist
+    from repro_torch.data.pipeline import chunk_stream
+    from repro_torch.data.zipf import zipf_tuples
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs.metrics import parse_prometheus, snapshot_from_prometheus
+    from repro_torch.serve import StreamEngine
+
+    o = obs_lib.get_default()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    short = rng.choice(np.arange(1, CHUNK), 7 + 4, replace=False)
+    online = [zipf_tuples(STREAM_TUPLES - r, 1 << 20, a, seed=SEED + 100 + i)
+              for i, (a, r) in enumerate(zip(STREAM_ALPHAS, [0, *short[:7]]))]
+    planned = [zipf_tuples(STREAM_SMALL, 1 << 20, a, seed=SEED + 200 + i)
+               for i, a in enumerate((1.0, 1.5, 2.0, 2.5, 3.0))]
+    heavy = [zipf_tuples(STREAM_SMALL, 1 << 20, 3.0, seed=SEED + 300 + i) for i in range(8)]
+    regs = [zipf_tuples(STREAM_SMALL - r, 1 << 22, a, seed=SEED + 400 + i)
+            for i, (a, r) in enumerate(zip((0.0, 1.0, 2.0, 3.0), short[7:]))]
+    data_s = time.perf_counter() - t0
+    hspec = histo.make_spec(512, 1 << 20, 16)
+    plans = []
+    for data in planned:
+        sample = data[rng.choice(len(data), len(data) // 1000, replace=False)]
+        dst = hspec.pre(torch.as_tensor(sample, device=dev), 16)[0]
+        plans.append(make_static_plan(16, STREAM_X, workload_hist(dst, 16), device=dev))
+    cases = [
+        # name, spec, tenants, plans, oracle, the kernel its PE update launches
+        ("histo_online", hspec, online, None,
+         lambda k: histo.oracle(k, 512, 1 << 20, 16), "route_accumulate"),
+        ("histo_planned", hspec, planned, plans,
+         lambda k: histo.oracle(k, 512, 1 << 20, 16), "route_accumulate"),
+        ("hhd_a3", hhd.make_spec(4, 1024, 16), heavy, None,
+         lambda k: hhd.oracle(k, 4, 1024, 16), "cms_update"),
+        ("hll_ragged", hll.make_spec(12, 16), regs, None,
+         lambda k: hll.oracle(k, 12, 16), "route_accumulate"),
+    ]
+    launches = {"route_accumulate": 0, "cms_update": 0}
+    recs, recorded = [], {}
+    with obs_lib.region("phase11") as region:
+        for name, spec, tenants, tplans, oracle, kernel in cases:
+            eng = StreamEngine(spec, num_pri=16, num_sec=STREAM_X, chunk_size=CHUNK,
+                               max_streams=STREAM_LANES, device=dev, obs=o)
+            inner = eng._run_streams
+
+            def recording(tuples, plans=None, mask=None, inner=inner, name=name):
+                out = inner(tuples, plans, mask=mask)
+                recorded[name] = (tuples, plans, mask, out)
+                return out
+            eng._run_streams = recording
+            rids = [eng.submit(data, plan=None if tplans is None else tplans[i])
+                    for i, data in enumerate(tenants)]
+            n_chunks = -(-max(len(d) for d in tenants) // CHUNK)
+            torch.cuda.synchronize()
+            reset_counts()                # ---- the main path from here
+            t0 = time.perf_counter()
+            out = eng.flush()
+            flush_s = time.perf_counter() - t0
+            counts = pe_counts()          # ---- to here
+            assert not any(lm_counts().values()), lm_counts()
+            for k, c in counts.items():
+                want = n_chunks if k == kernel else 0
+                assert c == want, f"{name}: {k} launched {c} times, expected {want} " \
+                                  "(once per batched chunk)"
+                launches[k] += c
+            t0 = time.perf_counter()
+            solo = make_executor(spec, 16, STREAM_X, CHUNK, device=dev)
+            for i, (rid, data) in enumerate(zip(rids, tenants)):
+                merged, stats = out[rid]
+                assert np.array_equal(merged, oracle(data[:, 0])), \
+                    f"{name}: tenant {i} differs from the numpy oracle"
+                ts = chunk_stream(data, CHUNK, pad_tail=True)
+                m, st = solo(torch.as_tensor(ts.body, device=dev),
+                             None if tplans is None else tplans[i],
+                             mask=None if len(data) % CHUNK == 0
+                             else torch.as_tensor(ts.mask, device=dev))
+                assert np.array_equal(merged, m.cpu().numpy()), \
+                    f"{name}: tenant {i} differs from its stream run alone"
+                _assert_stats_equal(stats, st, f"{name}: tenant {i} against its solo run")
+            check_s = time.perf_counter() - t0
+            # pad lanes: their outputs over the whole run, and their whole
+            # state over the first chunks, as init_state made it
+            tuples, tplan, mask, (merged, stats) = recorded[name]
+            pads = list(range(len(tenants), STREAM_LANES))
+            if pads:
+                assert not merged[pads].any() and not stats.workload[pads].any() \
+                    and not stats.max_load[pads].any() and not stats.rescheduled[pads].any()
+                assert bool((stats.mode[pads] == int(tplans is not None)).all())
+                res = make_resumable_executor(spec, 16, STREAM_X, CHUNK, device=dev)
+                start = stack_states(res.init_state(), STREAM_LANES)
+                if tplan is not None:
+                    start = with_plan(start, tplan)
+                end, _ = res.scan_lanes(start, tuples[:, :16], mask[:, :16])
+                assert _tree_equal(take_lanes(end, pads), take_lanes(start, pads)), \
+                    f"{name}: a pad lane's state moved"
+            n_tuples = sum(len(d) for d in tenants)
+            rec = {"engine": name, "tenants": len(tenants), "pad_lanes": len(pads),
+                   "tuples": n_tuples, "batched_chunks": n_chunks, "flush_s": flush_s,
+                   "tuples_per_s": n_tuples / flush_s,
+                   "ms_per_batched_chunk": 1e3 * flush_s / n_chunks,
+                   "launches": counts, "reschedules": int(stats.rescheduled.sum()),
+                   "oracle_exact": True, "solo_exact": True, "check_s": check_s}
+            print("stream_engine", json.dumps(rec))
+            recs.append(rec)
+            del tuples, mask, merged, stats
+            recorded.clear()
+    build_delta = dataclasses.asdict(region.inclusive)
+
+    # the first chunks of the online batch on card and CPU
+    body = np.stack([chunk_stream(d[:PARITY_LANE_CHUNKS * CHUNK], CHUNK).body for d in online])
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        run = make_multistream_executor(hspec, 16, STREAM_X, CHUNK, device=where)
+        merged, stats = run(torch.as_tensor(body),
+                            mask=torch.ones(body.shape[:3], dtype=torch.bool))
+        outs.append((merged.cpu(), stats))
+    assert torch.equal(outs[0][0], outs[1][0]), "online batch: card and CPU merged differ"
+    _assert_stats_equal(outs[0][1], outs[1][1], "online batch: card against CPU")
+
+    # the obs exports
+    text = o.registry.prometheus_text()
+    samples = {(n, tuple(sorted(lbl.items()))): v for n, lbl, v in parse_prometheus(text)}
+    snapshot_from_prometheus(text)
+    assert samples[("stream_requests_total", ())] == 25.0, samples
+    assert samples[("stream_batches_total", ())] == 4.0, samples
+    assert samples[("flush_latency_ms_count", (("scope", "stream"),))] == 4.0, samples
+    trace = REPO / "build" / "stream_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    o.tracer.write(trace)
+    spans = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"executor.build", "stream.flush", "stream.batch"} <= spans, spans
+
+    # ms per batched chunk at L lanes of the alpha-3 stream, and per chunk
+    # of the single-stream executor on lane 0's chunks, in turns
+    k = LANE_SWEEP_CHUNKS
+    runs = {lanes: (make_multistream_executor(hspec, 16, STREAM_X, CHUNK, device=dev),
+                    torch.as_tensor(stream_3[:lanes * k * CHUNK], device=dev)
+                    .view(lanes, k, CHUNK, 2)) for lanes in LANE_SWEEP}
+    runs["single"] = (make_executor(hspec, 16, STREAM_X, CHUNK, device=dev),
+                      runs[1][1][0])
+    sweep = {key: [] for key in runs}
+    for key in (*runs, *list(runs)[::-1]):
+        run, tuples = runs[key]
+        run(tuples[..., :2, :, :])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(tuples)
+        torch.cuda.synchronize()
+        sweep[key].append(1e3 * (time.perf_counter() - t0) / k)
+    lane_ms = {key: sum(t) / len(t) for key, t in sweep.items()}
+    lane_rate = {key: (1 if key == "single" else key) * CHUNK / (ms * 1e-3)
+                 for key, ms in lane_ms.items()}
+
+    # a profiled window of 16 batched chunks at L = 8 after 4
+    lanes = LANE_SWEEP[-1]
+    res = make_resumable_executor(hspec, 16, STREAM_X, CHUNK, device=dev)
+    tuples = runs[lanes][1]
+    assert tuples.shape[1] >= 20
+    states, _ = res.scan_lanes(stack_states(res.init_state(), lanes), tuples[:, :4])
+    profile = profile_window(lambda: res.scan_lanes(states, tuples[:, 4:20]), 16)
+
+    # one flattened PE launch against L per-lane launches of the same chunk
+    flat_vs = {}
+    for app, spec, pe in (("histo", hspec, lambda b, e, i, v: dispatch.pe_buffer_update(
+                              b, e, i, v, "add")),
+                          ("hhd", hhd.make_spec(4, 1024, 16), dispatch.cms_update)):
+        parts = [chunk_inputs(spec, stream_3[l * CHUNK:], STREAM_X, dev) for l in range(lanes)]
+        eff, idx, val = (torch.stack(t) for t in zip(*parts))
+        bufs = torch.stack([spec.init_buffer(16 + STREAM_X, dev)] * lanes)
+        flat_vs[app] = cuda_ms_turns({
+            "flattened_ms": lambda: _lane_pe_update(pe, bufs, eff, idx, val, 16 + STREAM_X),
+            "per_lane_ms": lambda: [pe(bufs[l], eff[l], idx[l], val[l]) for l in range(lanes)]})
+    rec = {"engines": recs, "data_s": data_s, "compilemon_phase11": build_delta,
+           "cpu_parity_chunks": PARITY_LANE_CHUNKS,
+           "ms_per_batched_chunk": lane_ms, "tuples_per_s_by_lanes": lane_rate,
+           "profile_l8": profile, "flattened_vs_per_lane": flat_vs,
+           "prometheus_samples": len(samples), "trace_spans": sorted(spans)}
+    return rec, launches
 
 
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
@@ -1023,7 +1268,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.apps import dp, hhd, histo, hll
-    from repro_torch.core import Ditto, perfmodel
+    from repro_torch.core import Ditto, compilemon, perfmodel
     from repro_torch.core.profiler import workload_hist
     from repro_torch.core.scheduler import schedule_secpes
     from repro_torch.core.types import ExecStats
@@ -1039,6 +1284,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 1. build
+    compilemon.install()
+    before = compilemon.snapshot()
     t0 = time.perf_counter()
     logs = _build.build()          # every csrc/*.cu, one nvcc each, in parallel
     build_s = time.perf_counter() - t0
@@ -1050,6 +1297,7 @@ def main() -> int:
     # ---- 2. kernels against their plain versions
     max_err = check_kernels(route_accumulate, cms_update, ref, dev)
     print("kernel_check", json.dumps(max_err))
+    print("compilemon_phases_1_2", json.dumps(dataclasses.asdict(compilemon.since(before))))
 
     # ---- 3. the main path at the paper's stream size
     t0 = time.perf_counter()
@@ -1259,6 +1507,15 @@ def main() -> int:
     rec, counts = tune_path(dev)
     launches["route_accumulate"] += counts["route_accumulate"]
     print("tune", json.dumps(rec))
+    torch.cuda.empty_cache()
+
+    # ---- 11. StreamEngine at serving size
+    t0 = time.perf_counter()
+    rec, counts = stream_path(dev, stream_3)
+    for k, c in counts.items():
+        launches[k] += c
+    rec["phase_s"] = time.perf_counter() - t0
+    print("stream", json.dumps(rec))
     torch.cuda.empty_cache()
     for k in kernels:                     # every main path's count, summed
         k["launches"] = launches[k["name"]]

@@ -66,12 +66,25 @@ def make_spec(radix_bits: int, num_pri: int, capacity_per_pe: int) -> DittoSpec:
         e = eff.clamp(0, num_pe - 1).long()
         rank = (incl - onehot).gather(0, e[None])[0]
         slot = (bufs.cursor[e] + rank).clamp(max=cap - 1)
-        # a dropped tuple writes back what a slot no kept tuple writes in
-        # this chunk already holds: the slot after PE e's new cursor
+        # a dropped tuple writes back what its spare slot, the one after PE
+        # e's new cursor, already holds.  When the chunk fills PE e to its
+        # capacity, that slot is the last one, which PE e's last kept tuple
+        # of the chunk writes: the dropped tuple then writes that tuple's
+        # value and tag, so the duplicate writes carry the same bytes and
+        # their order no longer matters
         spare = cursor[e].clamp(max=cap - 1).long()
+        last = (onehot * torch.arange(1, eff.shape[0] + 1, dtype=torch.int32,
+                                      device=eff.device)).amax(dim=1) - 1
+        writer = last[e]
+        taken = ~kept & (cursor[e] >= cap) & (writer >= 0)
+        w = writer.clamp(min=0).long()
+        value = value.to(torch.int32)
+        idx = idx.to(torch.int32)
         slot = torch.where(kept, slot, spare).long()
-        value = torch.where(kept[:, None], value.to(torch.int32), bufs.out[e, spare])
-        part = torch.where(kept, idx.to(torch.int32), bufs.dst_part[e, spare])
+        value = torch.where(kept[:, None], value,
+                            torch.where(taken[:, None], value[w], bufs.out[e, spare]))
+        part = torch.where(kept, idx,
+                           torch.where(taken, idx[w], bufs.dst_part[e, spare]))
         bufs.out.index_put_((e, slot), value)
         bufs.dst_part.index_put_((e, slot), part)
         return DPBuffers(out=bufs.out, cursor=cursor, dst_part=bufs.dst_part)

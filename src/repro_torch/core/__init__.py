@@ -6,8 +6,11 @@ from repro_torch.core.baseline import (make_replicated_executor,
                                        routed_buffer_bytes)
 from repro_torch.core.executor import (ExecState, ResumableExecutor,
                                        init_state, make_executor,
+                                       make_multistream_executor,
                                        make_resumable_executor,
-                                       make_static_plan, with_plan)
+                                       make_static_plan, put_lanes,
+                                       stack_plans, stack_states, take_lanes,
+                                       with_plan)
 from repro_torch.core.framework import Ditto, GeneratedImpl, tune_pe_counts
 from repro_torch.core.router import decode_filter, route_dense
 from repro_torch.core.types import (PROFILE_MODE, RUN_MODE, DittoSpec,
@@ -18,6 +21,8 @@ __all__ = [
     "Ditto", "GeneratedImpl", "tune_pe_counts", "ExecState",
     "ResumableExecutor", "init_state", "make_executor",
     "make_resumable_executor", "make_static_plan", "with_plan",
+    "make_multistream_executor", "stack_plans", "stack_states", "take_lanes",
+    "put_lanes",
     "make_replicated_executor", "replica_buffer_bytes", "routed_buffer_bytes",
     "decode_filter", "route_dense",
 ]

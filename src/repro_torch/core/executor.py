@@ -9,16 +9,22 @@ PROFILE -> RUN -> re-schedule mode machine stay branch-free: every decision
 is a ``torch.where`` on device tensors, so a chunk step never waits for the
 device.
 
-Two shapes share one chunk step (``_build_chunk_step``):
+Three shapes share one chunk step (``_build_chunk_step``):
 
   * ``make_executor`` -- one-shot: init -> chunks -> merge;
   * ``make_resumable_executor`` -- the caller owns the ``ExecState`` between
-    calls (``step``, ``run_chunks``, ``merge_state``).
+    calls (``step``, ``run_chunks``, ``merge_state``, and ``scan_lanes``
+    for a lanes-stacked state);
+  * ``make_multistream_executor`` -- S streams as S lanes of one batched
+    step.  Where JAX vmaps the scan, every ``ExecState`` leaf here gains a
+    leading lanes axis [L] (``stack_states``, ``take_lanes``,
+    ``put_lanes``); the PE update sees the lanes as L * (M+X) PEs, so it
+    stays one kernel launch a chunk.
 
-Both take an optional per-tuple validity mask beside the chunks: a masked
+All take an optional per-tuple validity mask beside the chunks: a masked
 tuple goes to the sentinel PriPE M and effective PE M+X, which every
 histogram and buffer update drops, so a padded chunk is bit-identical to a
-shorter one.  Both also take a ``TunedPlan`` (``repro_torch.tune``) in
+shorter one.  All also take a ``TunedPlan`` (``repro_torch.tune``) in
 place of ``num_pri``.
 """
 from __future__ import annotations
@@ -68,9 +74,17 @@ def _tree_map(fn, *objs):
     return fn(*objs)
 
 
+def _lanewise(cond: torch.Tensor, dim: int) -> torch.Tensor:
+    """``cond`` [L] (one flag a lane) viewed to broadcast against a tensor
+    of ``dim`` dimensions whose leading axis is the lanes axis; a 0-dim
+    ``cond`` broadcasts as it is."""
+    return cond.view(*cond.shape, *([1] * (dim - 1))) if cond.dim() else cond
+
+
 def _pick(cond: torch.Tensor, new, old):
-    """Field-wise ``torch.where(cond, new, old)``."""
-    return _tree_map(lambda a, b: torch.where(cond, a, b), new, old)
+    """Field-wise ``torch.where(cond, new, old)``, lane by lane."""
+    return _tree_map(lambda a, b: torch.where(_lanewise(cond, b.dim()), a, b),
+                     new, old)
 
 
 def _scalar(value, dtype, device) -> torch.Tensor:
@@ -92,10 +106,10 @@ def init_state(spec: DittoSpec, num_pri: int, num_sec: int,
 
 
 def with_plan(state: ExecState, plan: RoutePlan) -> ExecState:
-    """Seed a state with a pre-made plan and start it in RUN mode."""
-    return dataclasses.replace(
-        state, plan=plan,
-        mode=_scalar(RUN_MODE, torch.int32, state.mode.device))
+    """Seed a state with a pre-made plan and start it in RUN mode (a
+    lanes-stacked state takes a lanes-stacked plan, ``stack_plans``)."""
+    return dataclasses.replace(state, plan=plan,
+                               mode=torch.full_like(state.mode, RUN_MODE))
 
 
 def _resolve_config(num_pri, num_sec, chunk_size,
@@ -120,21 +134,41 @@ def _resolve_config(num_pri, num_sec, chunk_size,
     return num_pri, num_sec, chunk_size, mem_width_tuples
 
 
+def _lane_pe_update(pe_update, buffers, eff, idx, value, num_pe: int):
+    """The PE update of a lanes-stacked chunk: lanes are more PEs.  Lane
+    l's PE p is row l * num_pe + p of the buffers viewed [L * num_pe, ...],
+    so one call (one kernel launch on the card) folds every lane.  The
+    masked sentinel eff = num_pe becomes -1 before the offset, or it would
+    land in the next lane's PriPE 0."""
+    lanes = eff.shape[0]
+    base = torch.arange(lanes, dtype=eff.dtype, device=eff.device)[:, None] * num_pe
+    flat_eff = torch.where(eff < num_pe, eff + base, -1).reshape(-1)
+    flat = pe_update(buffers.reshape(lanes * num_pe, *buffers.shape[2:]), flat_eff,
+                     idx.reshape(-1, *idx.shape[2:]).contiguous(),
+                     value.reshape(-1, *value.shape[2:]).contiguous())
+    return flat.view(buffers.shape)
+
+
 def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
                       chunk_size: int, *, profile_chunks: int,
                       threshold: float, mem_width_tuples: int,
                       static_plan: bool, pe_update) -> Callable:
     """The per-chunk body shared by every executor shape:
     ``(state, chunk, mask) -> (state, stats)``.  ``mask`` is None (dense
-    chunk) or bool[chunk_size].  The step folds into ``state.buffers`` in
-    place; every other field of the returned state is a new tensor."""
+    chunk) or bool[chunk_size].  A lanes-stacked state (``stack_states``:
+    every leaf with a leading [L] axis) takes chunk [L, chunk_size, ...]
+    and mask bool[L, chunk_size], and each lane keeps its own plan, mode,
+    monitor and re-schedule counter.  The step folds into
+    ``state.buffers`` in place; every other field of the returned state
+    is a new tensor."""
     num_pe = num_pri + num_sec
 
     def chunk_step(state: ExecState, chunk: torch.Tensor,
                    mask: Optional[torch.Tensor] = None):
+        lanes = state.mode.dim()          # 0: one stream, 1: [L] lanes
         # `live` gates every carry update that counts chunks: a fully
         # masked chunk leaves the window, monitor and mode as they were.
-        live = None if mask is None else mask.any()
+        live = None if mask is None else mask.any(dim=-1)
         dst, idx, value = spec.pre(chunk, num_pri)
         if mask is not None:
             dst = torch.where(mask, dst, num_pri)
@@ -146,10 +180,13 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         if mask is not None:
             eff = torch.where(mask, eff, num_pe)
 
-        buffers = pe_update(state.buffers, eff, idx, value)
+        if lanes:
+            buffers = _lane_pe_update(pe_update, state.buffers, eff, idx, value, num_pe)
+        else:
+            buffers = pe_update(state.buffers, eff, idx, value)
 
         # port-limited cycle model for the monitor and the stats
-        max_load = profiler.workload_hist(eff, num_pe).max()
+        max_load = profiler.workload_hist(eff, num_pe).amax(dim=-1)
         cycles = perfmodel.chunk_cycles(chunk_size, max_load,
                                         mem_width_tuples, spec.ii_pe)
 
@@ -162,8 +199,8 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
 
         # runtime profiler: PROFILE mode accumulates the workload hist
         in_profile = state.mode == PROFILE_MODE
-        profile_hist = torch.where(in_profile, state.profile_hist + workload,
-                                   state.profile_hist)
+        profile_hist = torch.where(_lanewise(in_profile, 2),
+                                   state.profile_hist + workload, state.profile_hist)
         chunks_in_mode = state.chunks_in_mode + \
             (1 if live is None else live.to(torch.int32))
 
@@ -174,8 +211,8 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         assignment = scheduler.schedule_secpes(profile_hist, num_sec)
         new_plan = mapper.apply_schedule(state.plan, assignment)
         post_load = scheduler.post_plan_max_load(
-            profile_hist.to(torch.float32) / chunks_in_mode.clamp(min=1),
-            assignment)
+            profile_hist.to(torch.float32)
+            / _lanewise(chunks_in_mode.clamp(min=1), 2), assignment)
         ref_cycles = perfmodel.chunk_cycles(chunk_size, post_load,
                                             mem_width_tuples, spec.ii_pe)
 
@@ -197,12 +234,13 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         if threshold > 0.0:   # otherwise `fire` is always False
             merged = merger.merge_buffers(buffers, plan.assignment, num_pri,
                                           spec.combine)
-            resched = merger.reset_sec_buffers(buffers, num_pri, spec.combine)
-            resched[:num_pri] = merged
-            buffers = torch.where(fire, resched, buffers)
+            resched = merger.reset_sec_buffers(buffers, num_pri, spec.combine,
+                                               pe_axis=lanes)
+            resched.narrow(lanes, 0, num_pri).copy_(merged)
+            buffers = _pick(fire, resched, buffers)
         plan = _pick(fire, mapper.init_plan(num_pri, num_sec, mode.device), plan)
         mode = torch.where(fire, PROFILE_MODE, mode)
-        profile_hist = torch.where(fire, 0, profile_hist)
+        profile_hist = torch.where(_lanewise(fire, 2), 0, profile_hist)
         chunks_in_mode = torch.where(fire, 0, chunks_in_mode)
         monitor = _pick(fire, profiler.MonitorState.fresh(mode.device), monitor)
 
@@ -219,15 +257,18 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
 
 def _stack_stats(stats: list[ExecStats], like: ExecState,
                  num_pri: int) -> ExecStats:
+    """Per-chunk stats stacked on a chunk axis: [K, ...], or [L, K, ...]
+    after the lanes axis of a lanes-stacked state."""
+    lanes = like.mode.shape
     if not stats:
-        device = like.mode.device
-        empty = partial(torch.zeros, device=device)
-        return ExecStats(max_load=empty((0,), dtype=torch.int32),
-                         modeled_cycles=empty((0,), dtype=torch.float32),
-                         mode=empty((0,), dtype=torch.int32),
-                         rescheduled=empty((0,), dtype=torch.bool),
-                         workload=empty((0, num_pri), dtype=torch.int32))
-    return ExecStats(**{f.name: torch.stack([getattr(s, f.name) for s in stats])
+        empty = partial(torch.zeros, device=like.mode.device)
+        return ExecStats(max_load=empty((*lanes, 0), dtype=torch.int32),
+                         modeled_cycles=empty((*lanes, 0), dtype=torch.float32),
+                         mode=empty((*lanes, 0), dtype=torch.int32),
+                         rescheduled=empty((*lanes, 0), dtype=torch.bool),
+                         workload=empty((*lanes, 0, num_pri), dtype=torch.int32))
+    return ExecStats(**{f.name: torch.stack([getattr(s, f.name) for s in stats],
+                                            dim=len(lanes))
                         for f in dataclasses.fields(ExecStats)})
 
 
@@ -239,7 +280,9 @@ class ResumableExecutor:
     ``state.buffers`` in place, so the caller must not reuse that state.
     ``run_chunks(state, chunks, mask=None)`` clones the state once and then
     steps over the leading chunk axis, leaving the caller's state as it
-    was.  ``merge_state`` is a non-destructive snapshot."""
+    was; ``scan_lanes`` does the same for a lanes-stacked state
+    (``stack_states``).  ``merge_state`` is a non-destructive snapshot, of
+    every lane for a lanes-stacked state."""
 
     spec: DittoSpec
     num_pri: int
@@ -267,14 +310,52 @@ class ResumableExecutor:
             stats.append(s)
         return state, _stack_stats(stats, state, self.num_pri)
 
+    def scan_lanes(self, states: ExecState, chunks, mask=None):
+        """Advance a lanes-stacked state (``stack_states``) by
+        ``chunks[lane, k]`` in every lane at once: one batched chunk step
+        per k, whose PE update is one kernel launch for all lanes.
+
+        chunks: [L, num_chunks, chunk_size, ...]; mask: optional
+        bool[L, num_chunks, chunk_size].  Returns (states, ExecStats with
+        leaves [L, num_chunks, ...]), lane l equal to ``run_chunks`` of
+        lane l alone; the caller's state stays as it was.  A spec with its
+        own ``merge`` (DP) is not lane-batched."""
+        _refuse_lanes(self.spec)
+        chunks = torch.as_tensor(chunks, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        lanes = states.mode.shape
+        if len(lanes) != 1 or chunks.dim() < 3 or chunks.shape[0] != lanes[0] \
+                or chunks.shape[2] != self.chunk_size:
+            raise ValueError(f"chunks must be [{lanes[0] if lanes else 'L'}, num_chunks, "
+                             f"{self.chunk_size}, ...] for a state of {tuple(lanes)} "
+                             f"lanes, got {tuple(chunks.shape)}")
+        states = states.clone()
+        stats = []
+        for k in range(chunks.shape[1]):
+            states, s = self.step(states, chunks[:, k],
+                                  None if mask is None else mask[:, k])
+            stats.append(s)
+        return states, _stack_stats(stats, states, self.num_pri)
+
     def merge_state(self, state: ExecState):
-        """Merged [M, *local] buffers; the SecPE shadows stay intact.  A
-        spec with its own ``merge`` (DP) gets ``spec.merge(buffers, plan)``
-        instead."""
+        """Merged [M, *local] buffers ([L, M, *local] for a lanes-stacked
+        state); the SecPE shadows stay intact.  A spec with its own
+        ``merge`` (DP) gets ``spec.merge(buffers, plan)`` instead."""
         if self.spec.merge is not None:
+            if state.mode.dim():
+                _refuse_lanes(self.spec)
             return self.spec.merge(state.buffers, state.plan)
         return merger.merge_buffers(state.buffers, state.plan.assignment,
                                     self.num_pri, self.spec.combine)
+
+
+def _refuse_lanes(spec: DittoSpec) -> None:
+    if spec.merge is not None:
+        raise NotImplementedError(
+            f"{spec.name}: a spec with its own merge (non-decomposable "
+            "application) is not lane-batched; run each stream through "
+            "make_executor")
 
 
 def make_resumable_executor(spec: DittoSpec, num_pri: Any,
@@ -283,7 +364,8 @@ def make_resumable_executor(spec: DittoSpec, num_pri: Any,
                             profile_chunks: int = 1, threshold: float = 0.0,
                             mem_width_tuples: Optional[int] = None,
                             static_plan: bool = False,
-                            device="cuda") -> ResumableExecutor:
+                            device="cuda",
+                            _who: str = "make_resumable_executor") -> ResumableExecutor:
     """The suspend/resume shape of ``make_executor`` (same knobs)::
 
         res = make_resumable_executor(spec, 16, 4, 4096)
@@ -302,11 +384,20 @@ def make_resumable_executor(spec: DittoSpec, num_pri: Any,
             f"{spec.name}: non-decomposable applications keep per-PE output "
             "regions and cannot re-merge mid-stream; use threshold=0.0")
     device = resolve_device(device)
-    pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
-    step = _build_chunk_step(
-        spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
-        threshold=threshold, mem_width_tuples=mem_width_tuples,
-        static_plan=static_plan, pe_update=pe_update)
+    # the observability hook on the funnel every executor build goes
+    # through; a lazy import, as repro_torch.obs imports repro_torch.core
+    from repro_torch import obs as obs_lib
+    obs = obs_lib.get_default()
+    obs.registry.counter(
+        "executor_builds_total", "executor factory calls, by entry point",
+        labels=("kind",)).inc(kind=_who)
+    with obs.span("executor.build", cat="build", kind=_who, app=spec.name,
+                  num_pri=num_pri, num_sec=num_sec, chunk_size=chunk_size):
+        pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
+        step = _build_chunk_step(
+            spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
+            threshold=threshold, mem_width_tuples=mem_width_tuples,
+            static_plan=static_plan, pe_update=pe_update)
     return ResumableExecutor(spec=spec, num_pri=num_pri, num_sec=num_sec,
                              chunk_size=chunk_size, device=device, step=step)
 
@@ -336,7 +427,7 @@ def make_executor(spec: DittoSpec, num_pri: Any, num_sec: Optional[int] = None,
     res = make_resumable_executor(
         spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
         threshold=threshold, mem_width_tuples=mem_width_tuples,
-        static_plan=static_plan, device=device)
+        static_plan=static_plan, device=device, _who="make_executor")
 
     def run(tuples, plan: Optional[RoutePlan] = None, mask=None):
         state = res.init_state()
@@ -356,3 +447,76 @@ def make_static_plan(num_pri: int, num_sec: int, workload,
                                            num_sec)
     return mapper.apply_schedule(mapper.init_plan(num_pri, num_sec, device),
                                  assignment)
+
+
+def stack_states(state: ExecState, num_lanes: int) -> ExecState:
+    """One ``ExecState`` repeated into a lanes-stacked state: every leaf
+    gains a leading [num_lanes] axis (copies, no shared storage)."""
+    return _tree_map(lambda x: torch.stack([x] * num_lanes), state)
+
+
+def _lane_index(idx, x: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.long, device=x.device)
+
+
+def take_lanes(states: ExecState, idx) -> ExecState:
+    """The lanes ``idx`` (a list of ints: a lanes-stacked state; an int:
+    one lane's state) of a lanes-stacked state or plan: the suspend unit
+    of a lane (a checkpoint of all lanes takes them all)."""
+    return _tree_map(lambda x: x[_lane_index(idx, x)], states)
+
+
+def put_lanes(states: ExecState, idx, sub: ExecState) -> ExecState:
+    """A new lanes-stacked state with lanes ``idx`` replaced by ``sub``
+    (the inverse of ``take_lanes``); ``states`` stays as it was."""
+    return _tree_map(lambda x, s: x.index_put((_lane_index(idx, x),), s), states, sub)
+
+
+def stack_plans(plans) -> RoutePlan:
+    """Per-stream RoutePlans stacked into the lanes-stacked plan that the
+    multi-stream executor takes (per-tenant plans).  All plans must share
+    (num_pri, num_sec)."""
+    plans = list(plans)
+    if not plans:
+        raise ValueError("stack_plans needs at least one plan")
+    shapes = {(p.num_pri, p.num_sec) for p in plans}
+    if len(shapes) != 1:
+        raise ValueError(f"plans disagree on (num_pri, num_sec): {shapes}")
+    return _tree_map(lambda *xs: torch.stack(xs), *plans)
+
+
+def make_multistream_executor(spec: DittoSpec, num_pri: Any,
+                              num_sec: Optional[int] = None,
+                              chunk_size: Optional[int] = None, *,
+                              device="cuda", **kw) -> Callable[..., tuple[Any, ExecStats]]:
+    """S independent chunk streams through one lane-batched chunk step.
+
+    Every stream is a lane with its own profiler and scheduler state
+    (plan, mode, monitor, re-schedule counter), while the per-chunk work of
+    all streams runs as one batched step: lanes are more PEs, so each PE
+    update is one kernel launch for all S streams.  ``num_pri`` takes a
+    TunedPlan as in ``make_executor``; ``kw`` are ``make_executor``'s knobs.
+
+    Returns run_streams(tuples, plans=None, mask=None) -> (merged, ExecStats):
+      tuples: [S, num_chunks, chunk_size, ...];
+      plans: optional lanes-stacked RoutePlan (``stack_plans``); every
+        stream then starts in RUN mode under its own plan;
+      mask: optional bool[S, num_chunks, chunk_size] validity mask; ragged
+        streams and all-masked pad lanes are exact no-ops.
+    The outputs gain a leading [S] axis and equal, lane by lane, each stream
+    run alone through ``make_executor``, bit for bit for integer apps.  A
+    spec with its own ``merge`` (DP) raises NotImplementedError.
+    """
+    _refuse_lanes(spec)
+    res = make_resumable_executor(spec, num_pri, num_sec, chunk_size, device=device,
+                                  _who="make_multistream_executor", **kw)
+
+    def run_streams(tuples, plans: Optional[RoutePlan] = None, mask=None):
+        tuples = torch.as_tensor(tuples, device=res.device)
+        states = stack_states(res.init_state(), tuples.shape[0])
+        if plans is not None:
+            states = with_plan(states, _tree_map(lambda t: t.to(res.device), plans))
+        states, stats = res.scan_lanes(states, tuples, mask)
+        return res.merge_state(states), stats
+
+    return run_streams

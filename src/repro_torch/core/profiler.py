@@ -14,12 +14,18 @@ import torch
 
 def workload_hist(dst: torch.Tensor, num_pri: int) -> torch.Tensor:
     """int32[M] count of the tuples designated to each PriPE.  Ids outside
-    [0, M) (the executor's masked sentinel M) are dropped."""
+    [0, M) (the executor's masked sentinel M) are dropped.  ``dst`` [L, T]
+    (a leading lanes axis) gives one histogram a lane, [L, M]."""
     valid = (dst >= 0) & (dst < num_pri)
     d = torch.where(valid, dst, num_pri).long()
-    hist = torch.zeros((num_pri + 1,), dtype=torch.int32, device=dst.device)
-    hist.index_add_(0, d, torch.ones_like(d, dtype=torch.int32))
-    return hist[:num_pri]
+    lanes = dst.shape[:-1]
+    if lanes:       # lane l counts into its own M + 1 cells
+        d = d + torch.arange(lanes.numel(), device=dst.device).view(*lanes, 1) * (num_pri + 1)
+    hist = torch.zeros((lanes.numel() * (num_pri + 1),), dtype=torch.int32,
+                       device=dst.device)
+    hist.index_add_(0, d.reshape(-1), torch.ones((d.numel(),), dtype=torch.int32,
+                                                 device=dst.device))
+    return hist.view(*lanes, num_pri + 1)[..., :num_pri]
 
 
 def partial_hists(dst: torch.Tensor, num_pri: int, num_lanes: int) -> torch.Tensor:

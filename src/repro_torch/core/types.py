@@ -41,6 +41,8 @@ class RoutePlan:
     table: int32[M, X+1]; row p holds PriPE p followed by its SecPEs, the
       unused slots hold p itself.
     counter: int32[M], the number of valid entries of each row.
+    A lanes-stacked plan (``executor.stack_plans``) has a leading [L] axis
+    on all three.
     """
 
     assignment: torch.Tensor
@@ -49,11 +51,11 @@ class RoutePlan:
 
     @property
     def num_pri(self) -> int:
-        return self.table.shape[0]
+        return self.table.shape[-2]
 
     @property
     def num_sec(self) -> int:
-        return self.assignment.shape[0]
+        return self.assignment.shape[-1]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,7 +9,9 @@ same name (Python.h only), loaded with ``load_module``.  Builds land in
 of every header under ``csrc/`` and of the flags, so an edited source or
 header is never served from a stale library.
 Nothing is built at import: the first kernel call builds what it needs, and
-``build`` compiles several sources at once (one nvcc process each).
+``build`` compiles several sources at once (one nvcc process each).  Each
+nvcc build and each first load of a library is reported, with its wall
+seconds, to ``core.compilemon``: they are what stalls a first flush.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import shutil
 import subprocess
 import sysconfig
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -66,6 +69,7 @@ def build(*names: str) -> dict[str, str]:
     names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
     logs = dict.fromkeys(names, "")
     with _lock:
+        t0 = time.perf_counter()
         jobs = []
         for name in names:
             src, lib = _target(name)
@@ -85,9 +89,18 @@ def build(*names: str) -> dict[str, str]:
                 failed.append(f"nvcc failed for {name}.cu:\n{out}")
             else:
                 tmp.replace(lib)
+        if jobs:
+            _stalled(len(jobs), time.perf_counter() - t0)
         if failed:
             raise RuntimeError("\n".join(failed))
         return logs
+
+
+def _stalled(events: int, seconds: float) -> None:
+    """Report builds or loads to ``core.compilemon`` (imported here: the
+    core package imports the kernels)."""
+    from repro_torch.core import compilemon
+    compilemon.record(events, seconds)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -99,7 +112,9 @@ def load(name: str) -> ctypes.CDLL:
     build(name)
     with _lock:
         if name not in _libs:
+            t0 = time.perf_counter()
             _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+            _stalled(1, time.perf_counter() - t0)
         return _libs[name]
 
 
@@ -115,9 +130,11 @@ def load_module(name: str):
     path = str(_target(name)[1])
     with _lock:
         if key not in _libs:
+            t0 = time.perf_counter()
             loader = importlib.machinery.ExtensionFileLoader(name, path)
             spec = importlib.util.spec_from_file_location(name, path, loader=loader)
             mod = importlib.util.module_from_spec(spec)
             loader.exec_module(mod)
             _libs[key] = mod
+            _stalled(1, time.perf_counter() - t0)
         return _libs[key]

@@ -1,6 +1,7 @@
-"""LM serving: batched decode over KV caches and a slot scheduler.
+"""Serving: batched LM decode over KV caches and a slot scheduler, and
+multi-tenant analytics serving over the lane-batched Ditto executor.
 
-The PyTorch counterpart of the LM half of ``repro/serve/engine.py``:
+The PyTorch counterpart of ``repro/serve/engine.py``.  The LM half:
   * ``prefill_cache`` (decode steps over the prompt; a Python loop where
     the JAX version scans) and ``decode_tokens`` (one greedy token for the
     whole batch);
@@ -10,15 +11,24 @@ The PyTorch counterpart of the LM half of ``repro/serve/engine.py``:
 Empty slots behave as in the JAX engine: they decode their stale token at
 length 0 every tick, and those tokens enter each MoE layer's histogram and
 Ditto plan.  The cache is updated in place.
+
+The analytics half: ``StreamEngine`` runs many tenants' tuple streams
+through one ``core.executor.make_multistream_executor``, as JAX's does.
+It takes ``device=`` where JAX's takes ``kernel_backend=``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_lib
+from repro_torch.core.executor import make_multistream_executor, stack_plans
+from repro_torch.core.types import ExecStats, resolve_device
+from repro_torch.data.pipeline import chunk_stream
 from repro_torch.models.zoo import Model
 
 
@@ -127,3 +137,150 @@ class DecodeEngine:
     def run(self):
         while self.queue or any(r is not None for r in self.slot_req):
             self.step()
+
+
+# ------------------------------------------------- multi-stream analytics
+
+@dataclasses.dataclass
+class StreamRequest:
+    rid: int
+    chunks: np.ndarray                 # [num_chunks, chunk_size, ...]
+    plan: Optional[Any] = None         # per-tenant RoutePlan (static RUN mode)
+    mask: Optional[np.ndarray] = None  # bool[num_chunks, chunk] (ragged tail)
+
+
+class StreamEngine:
+    """Multi-tenant analytics serving: many independent tuple streams run
+    through ONE lane-batched streaming executor
+    (``make_multistream_executor``), so a batch of skewed workloads shares
+    each chunk step, and each PE kernel launch, while every tenant keeps
+    its own profiler, scheduler and plan.
+
+    Requests are whole streams of any length (a ragged tail rides the
+    pipeline's masked final chunk).  ``flush`` picks the largest group of
+    compatible pending requests (same chunk count, same planned/online
+    kind) each round, ties going to the oldest, pads the streams axis to
+    ``max_streams`` with all-masked zero chunks (exact no-ops; never a
+    tenant's data) and returns per-request (merged buffers, ExecStats) as
+    numpy.
+
+    Configuration comes from explicit (num_pri, num_sec, chunk_size) or
+    from a ``repro_torch.tune.TunedPlan`` (``tuned=``).  A tenant may pin
+    its own static plan per request (``submit(data, plan=...)``, a
+    RoutePlan or a TunedPlan at the engine's (M, X)); such streams start
+    in RUN mode under their plan and batch apart from the online ones.
+    """
+
+    def __init__(self, spec, *, num_pri: Optional[int] = None,
+                 num_sec: Optional[int] = None,
+                 chunk_size: Optional[int] = None, tuned=None,
+                 max_streams: int = 8, device="cuda", obs=None,
+                 **executor_kw):
+        self.obs = obs_lib.resolve(obs)
+        reg = self.obs.registry
+        self._m_submits = reg.counter("stream_requests_total", "streams submitted")
+        self._m_batches = reg.counter("stream_batches_total",
+                                      "compatible batches run per flush")
+        self._m_flush_ms = reg.histogram(
+            "flush_latency_ms", "wall-clock per flush, by flush tier",
+            labels=("scope",))
+        if tuned is not None:
+            kw = tuned.executor_kwargs()
+            num_pri = kw["num_pri"] if num_pri is None else num_pri
+            num_sec = kw["num_sec"] if num_sec is None else num_sec
+            chunk_size = kw["chunk_size"] if chunk_size is None else chunk_size
+            executor_kw.setdefault("mem_width_tuples", kw["mem_width_tuples"])
+        if None in (num_pri, num_sec, chunk_size):
+            raise TypeError("StreamEngine needs num_pri/num_sec/chunk_size "
+                            "or tuned=TunedPlan")
+        self.spec = spec
+        self.num_pri, self.num_sec = num_pri, num_sec
+        self.chunk_size = chunk_size
+        self.max_streams = max_streams
+        self.device = resolve_device(device)
+        self._run_streams = make_multistream_executor(
+            spec, num_pri, num_sec, chunk_size, device=self.device, **executor_kw)
+        self._next_rid = 0
+        self.pending: List[StreamRequest] = []
+
+    def submit(self, data: np.ndarray, plan=None) -> int:
+        """Enqueue a flat tuple stream [n, ...] of any length; a ragged tail
+        becomes a masked final chunk.  ``plan`` optionally pins this tenant
+        to a static RoutePlan (or the ``route_plan`` of a TunedPlan tuned at
+        this engine's (M, X))."""
+        if plan is not None and hasattr(plan, "route_plan"):
+            if (plan.num_pri, plan.num_sec) != (self.num_pri, self.num_sec):
+                raise ValueError(
+                    f"TunedPlan is for ({plan.num_pri}P, {plan.num_sec}S); "
+                    f"engine runs ({self.num_pri}P, {self.num_sec}S)")
+            plan = plan.route_plan
+        if plan is not None and \
+                (plan.num_pri, plan.num_sec) != (self.num_pri, self.num_sec):
+            raise ValueError(
+                f"plan is for ({plan.num_pri}P, {plan.num_sec}S); "
+                f"engine runs ({self.num_pri}P, {self.num_sec}S)")
+        data = np.asarray(data)
+        ragged = len(data) % self.chunk_size != 0
+        ts = chunk_stream(data, self.chunk_size, pad_tail=True)
+        rid = self._next_rid
+        self._next_rid += 1
+        self.pending.append(StreamRequest(
+            rid, ts.body, plan, mask=ts.mask if ragged else None))
+        self._m_submits.inc()
+        return rid
+
+    def _next_batch(self) -> List[StreamRequest]:
+        """Largest compatible group of pending requests (same chunk count,
+        same planned/online kind), capped at max_streams; ties break
+        toward the oldest pending request so no group starves."""
+        groups: Dict[tuple, List[StreamRequest]] = {}
+        order: Dict[tuple, int] = {}
+        for pos, r in enumerate(self.pending):
+            key = (r.chunks.shape[0], r.plan is not None)
+            groups.setdefault(key, []).append(r)
+            order.setdefault(key, pos)
+        best = max(groups, key=lambda k: (min(len(groups[k]), self.max_streams),
+                                          -order[k]))
+        batch = groups[best][:self.max_streams]
+        batch_ids = {r.rid for r in batch}
+        self.pending = [r for r in self.pending if r.rid not in batch_ids]
+        return batch
+
+    def _run_batch(self, batch: List[StreamRequest]):
+        """One lane-batched run of ``batch``, padded to max_streams ->
+        (merged [max_streams, ...], ExecStats [max_streams, K, ...]) as
+        numpy, one device-to-host copy of each output."""
+        stack = np.stack([r.chunks for r in batch])
+        pad = self.max_streams - len(batch)
+        if pad > 0:
+            stack = np.concatenate([stack, np.zeros((pad, *stack.shape[1:]), stack.dtype)])
+        plans = None
+        if batch[0].plan is not None:
+            plans = stack_plans([r.plan for r in batch] + [batch[0].plan] * pad)
+        mask = None
+        if pad > 0 or any(r.mask is not None for r in batch):
+            mask = torch.as_tensor(np.stack(
+                [r.mask if r.mask is not None else np.ones(r.chunks.shape[:2], bool)
+                 for r in batch] + [np.zeros(batch[0].chunks.shape[:2], bool)] * pad))
+        merged, stats = self._run_streams(torch.as_tensor(stack), plans, mask=mask)
+        return merged.cpu().numpy(), ExecStats(**{
+            f.name: getattr(stats, f.name).cpu().numpy()
+            for f in dataclasses.fields(ExecStats)})
+
+    def flush(self) -> Dict[int, tuple]:
+        """Run every pending request; returns {rid: (merged, stats)}, numpy."""
+        out: Dict[int, tuple] = {}
+        t0 = time.perf_counter()
+        with self.obs.span("stream.flush", cat="stream", pending=len(self.pending)):
+            while self.pending:
+                batch = self._next_batch()
+                with self.obs.span("stream.batch", cat="stream", size=len(batch),
+                                   chunks=int(batch[0].chunks.shape[0])):
+                    merged, stats = self._run_batch(batch)
+                    for i, req in enumerate(batch):
+                        out[req.rid] = (merged[i], ExecStats(**{
+                            f.name: getattr(stats, f.name)[i]
+                            for f in dataclasses.fields(ExecStats)}))
+                self._m_batches.inc()
+        self._m_flush_ms.observe((time.perf_counter() - t0) * 1e3, scope="stream")
+        return out

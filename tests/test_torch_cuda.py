@@ -548,3 +548,81 @@ def test_ditto_tune_on_card_returns_a_plan(cuda_device):
         plan.route_plan)
     np.testing.assert_array_equal(merged.cpu().numpy(),
                                   histo.oracle(tuples[:, 0], 512, 1 << 20, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("combine", ["add", "max"])
+def test_lane_flattened_route_accumulate(cuda_device, combine, lanes):
+    """The executor's lane-batched PE update: one route_accumulate launch
+    over [L * num_pe, local] equals L per-lane launches and the plain
+    version, with masked sentinels (eff = num_pe) and -1 in every lane."""
+    from repro_torch.core.executor import _lane_pe_update
+    rng = np.random.default_rng(lanes)
+    num_pe, local, t = 30, 32, 4096
+    bufs = torch.from_numpy(rng.integers(-50, 50, (lanes, num_pe, local)).astype(np.int32))
+    eff = torch.from_numpy(rng.integers(0, num_pe + 1, (lanes, t)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-1, local + 1, (lanes, t)).astype(np.int32))
+    val = torch.from_numpy(rng.integers(-100, 100, (lanes, t)).astype(np.int32))
+    want = torch.stack([ref.pe_buffer_update(bufs[l].clone(), eff[l], idx[l], val[l], combine)
+                        for l in range(lanes)])
+    pe = lambda b, e, i, v: dispatch.pe_buffer_update(b, e, i, v, combine)
+    per_lane = bufs.to(cuda_device)
+    for l in range(lanes):
+        pe(per_lane[l], eff[l].to(cuda_device), idx[l].to(cuda_device), val[l].to(cuda_device))
+    before = route_accumulate.launches
+    got = _lane_pe_update(pe, bufs.to(cuda_device), eff.to(cuda_device), idx.to(cuda_device),
+                          val.to(cuda_device), num_pe)
+    assert route_accumulate.launches == before + 1
+    _assert_same(got, want, exact=True)
+    _assert_same(per_lane, want, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_lane_flattened_cms_update(cuda_device, lanes):
+    from repro_torch.core.executor import _lane_pe_update
+    rng = np.random.default_rng(lanes + 100)
+    num_pe, depth, width, t = 30, 4, 1024, 4096
+    sketch = torch.from_numpy(rng.integers(0, 50, (lanes, num_pe, depth, width)).astype(np.int32))
+    eff = torch.from_numpy(rng.integers(0, num_pe + 1, (lanes, t)).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, width, (lanes, t, depth)).astype(np.int32))
+    val = torch.from_numpy(rng.integers(0, 100, (lanes, t)).astype(np.int32))
+    want = torch.stack([ref.cms_update(sketch[l].clone(), eff[l], cols[l], val[l])
+                        for l in range(lanes)])
+    before = cms_update.launches
+    got = _lane_pe_update(dispatch.cms_update, sketch.to(cuda_device), eff.to(cuda_device),
+                          cols.to(cuda_device), val.to(cuda_device), num_pe)
+    assert cms_update.launches == before + 1
+    _assert_same(got, want, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["histo", "hll", "hhd"])
+def test_multistream_on_card_matches_cpu(cuda_device, app):
+    """make_multistream_executor on the card equals the CPU lane by lane,
+    ragged tails and an all-masked pad lane included, one PE launch per
+    batched chunk."""
+    from repro_torch.core.executor import make_multistream_executor
+    spec = {"histo": lambda: histo.make_spec(512, 1 << 20, 16),
+            "hll": lambda: hll.make_spec(12, 16),
+            "hhd": lambda: hhd.make_spec(4, 1024, 16)}[app]()
+    lanes, chunks, chunk = 4, 6, 4096
+    tuples = np.stack([zipf_tuples(chunks * chunk, 1 << 20, 1.0 * l, seed=l)
+                       for l in range(lanes)]).reshape(lanes, chunks, chunk, 2)
+    mask = np.ones((lanes, chunks, chunk), bool)
+    mask[0, -1, 1000:] = False
+    mask[-1] = False
+    outs = []
+    kernel = cms_update if app == "hhd" else route_accumulate
+    for dev in (cuda_device, torch.device("cpu")):
+        before = kernel.launches
+        merged, stats = make_multistream_executor(spec, 16, 14, chunk, device=dev)(
+            torch.as_tensor(tuples), mask=torch.as_tensor(mask))
+        if dev.type == "cuda":
+            assert kernel.launches == before + chunks
+        outs.append((merged.cpu(), stats))
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = outs
+    assert torch.equal(m_gpu, m_cpu)
+    for f in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
+        assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)), f

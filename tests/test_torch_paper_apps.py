@@ -204,6 +204,24 @@ def test_dp_buffers_and_partitions_equal_jax(num_sec):
         assert dp.multiset_equal(p, w) and jdp.multiset_equal(p, w)
 
 
+def test_dp_masked_chunk_filling_a_region_to_capacity():
+    """A chunk with masked rows fills PE 1's region to exactly its
+    capacity: the last kept tuple is written, as in JAX, and the regions
+    are equal slot for slot."""
+    keys = np.array([[1, 1, 1, 0], [1, 0, 0, 0]], np.int32)
+    tuples = np.stack([keys, np.arange(100, 108, dtype=np.int32).reshape(2, 4)], -1)
+    mask = np.array([[True] * 4, [True, False, False, False]])
+    run = executor.make_executor(dp.make_spec(1, 2, 4), 2, 0, 4, device="cpu")
+    jrun = jexecutor.make_executor(jdp.make_spec(1, 2, 4), 2, 0, 4)
+    bufs, _ = run(torch.as_tensor(tuples), mask=torch.as_tensor(mask))
+    jbufs, _ = jrun(jnp.asarray(tuples), mask=jnp.asarray(mask))
+    _dp_eq(bufs, jbufs)
+    parts = dp.partitions_from_buffers(bufs, 2)
+    assert [p[:, 1].tolist() for p in parts] == [[103], [100, 101, 102, 104]]
+    assert [p[:, 1].tolist() for p in jdp.partitions_from_buffers(jbufs, 2)] == \
+        [[103], [100, 101, 102, 104]]
+
+
 def test_dp_mid_stream_state_carried_across():
     """A JAX DP state after 5 chunks, moved into the port with interop,
     continues exactly as the JAX executor continues it."""
