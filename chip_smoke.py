@@ -69,6 +69,30 @@ Phases (any failure exits non-zero before the result lines):
      and 8 lanes, a profile of 16 batched chunks at L = 8, the flattened PE
      launch against L per-lane launches (in turns), and the build monitor's
      delta over the phase.
+ 12. SessionEngine at the paper's scale and shape (M = 16, X = 14, chunks
+     of 4096) on the default obs bundle, through a seeded op script of
+     ragged appends (0-4 chunks plus a tail), queries in both scopes,
+     engine and per-session flushes and closes: (a) HISTO (512 bins, domain
+     2^20), 8 primary + 8 secondary slots, aot_buckets=8: 24 tenants at
+     Zipf alpha 0-3 and ~2^25 tuples (~256 MB), 8 of them one open_batch
+     storm, 16 by open, 8 of which queue; every answer bit-exact against
+     the oracle, the slot table and queue against FIFO admission, no build
+     event after warmup(), route_accumulate once per batched chunk step,
+     and the first 64 batched chunks of the same ops identical on a CPU
+     engine (answers, slot tables, integer telemetry); (b) the same ops on a
+     DurableSessionEngine (checkpoint_every=4, keep=3), dropped without
+     shutdown two thirds through and recovered on the card: a checkpoint
+     restored, fewer records replayed than logged, backlogs and slot table
+     and every answer as in (a), then the rest with (a)'s checks; (c) HHD, 8
+     tenants at alpha 3 with secondary grants (cms_update over
+     [16 * 30, 4, 1024]); (d) DP under lanes, 4 tenants of 2^22 tuples at
+     alpha 0-3 with 2^19 slots a PE (~0.75 GB of lane state): partitions
+     equal to the oracle as multisets, no cursor at the capacity, no PE
+     kernel launched.  Prints the session, durability and session_dp lines
+     (tuples/s of engine-wide flushes, query p50/p99 by scope, grants,
+     re-schedules, batched chunks, busy lanes, a blocking checkpoint's ms,
+     WAL bytes and MB/s, recovery seconds and replayed tuples, the build
+     monitor's delta).
 Then the MoE language model (moonshot-v1-16b-a3b at full width):
   A. hold onehot_dispatch, onehot_combine and flash_attention against their
      plain versions on CUDA tensors at the prefill and decode shapes:
@@ -95,8 +119,9 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
-count windows of phases 3, 7, 9, 10 and 11: phase 11's windows are its four
-flushes), and last {"ok": true, "device": {...}}.
+count windows of phases 3, 7, 9, 10, 11 and 12: phase 11's windows are its
+four flushes, phase 12's its op script runs), and last {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -132,6 +157,12 @@ STREAM_TUPLES, STREAM_SMALL = 2**22, 2**21    # a tenant of the online batch; of
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
+SESSION_TENANTS, SESSION_SLOTS, SESSION_AOT = 24, (8, 8), 8   # phase 12 (a), (b)
+SESSION_TUPLES = 2**25                       # appended over the op script, ~256 MB
+SESSION_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
+SESSION_PARITY_CHUNKS = 64
+HHD_SESSION_TUPLES = 2**20                   # phase 12 (c): 0.5-2x this a tenant
+DP_SESSION_TUPLES, DP_SESSION_CAPACITY = 2**22, 2**19   # phase 12 (d)
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -809,6 +840,466 @@ def stream_path(dev, stream_3) -> tuple[dict, dict]:
            "prometheus_samples": len(samples), "trace_spans": sorted(spans)}
     return rec, launches
 
+
+# ---------------------------------------------------------------- phase 12
+
+class SlotModel:
+    """The session engine's documented admission and backlog semantics: a
+    strictly FIFO queue admitted into the lowest free slot, and the tuples
+    each session holds on the host (full chunks leave at a flush, all of
+    them at a per-session flush or a query)."""
+
+    def __init__(self, slots: int, chunk: int):
+        self.slot_sid = [None] * slots
+        self.queue, self.free, self.pending, self.chunk = [], list(range(slots)), {}, chunk
+
+    def _admit(self):
+        while self.queue and self.free:
+            self.slot_sid[self.free.pop(0)] = self.queue.pop(0)
+
+    def admitted(self) -> list:
+        return [s for s in self.slot_sid if s is not None]
+
+    def open(self, sid):
+        self.pending[sid] = 0
+        self.queue.append(sid)
+        self._admit()
+
+    def flush(self, force=()):
+        self._admit()
+        for s in self.admitted():
+            self.pending[s] = 0 if s in force else self.pending[s] % self.chunk
+
+    def close(self, sid):
+        slot = self.slot_sid.index(sid)
+        self.slot_sid[slot], self.pending[sid] = None, 0
+        self.free = sorted(self.free + [slot])
+        self._admit()
+
+
+def session_script(lengths, rng, storm: int, wave_a: int, slots: int) -> list:
+    """A seeded op script over tenants 0..len(lengths)-1 (tenant t is sid t):
+    the first ``storm`` arrive as one open_batch whose first appends are 1-3
+    chunks plus a ragged tail; the next ``wave_a`` open at once and queue,
+    each with one ragged append; the rest open one at a time when a close
+    frees a slot that no queued tenant takes.  Each round every admitted
+    tenant appends 0-4 chunks plus a ragged tail with probability 0.8, one
+    admitted tenant queries (either scope), then an engine flush (0.5) or a
+    per-session flush (0.3), and admitted tenants whose stream is appended
+    in full close.  A ("query_all",) op -- every admitted tenant queries --
+    stands two thirds of the way through (phase 12b crashes there)."""
+    model = SlotModel(slots, CHUNK)
+    pos, ops, closed = [0] * len(lengths), [], set()
+
+    def take(t, n):
+        n = int(min(n, lengths[t] - pos[t]))
+        pos[t] += n
+        return n
+
+    sizes = [take(t, (1 + rng.integers(3)) * CHUNK + rng.integers(1, CHUNK))
+             for t in range(storm)]
+    ops.append(("storm", list(range(storm)), sizes))
+    for t in range(storm):
+        model.open(t)
+    for t in range(storm, storm + wave_a):
+        ops.append(("open", t))
+        model.open(t)
+        ops.append(("append", t, take(t, rng.integers(1, 2 * CHUNK))))
+    nxt = storm + wave_a
+    while len(closed) < len(lengths):
+        for t in model.admitted():
+            if pos[t] < lengths[t] and rng.random() < 0.8:
+                ops.append(("append", t, take(t, rng.integers(0, 5) * CHUNK
+                                               + rng.integers(0, CHUNK))))
+        admitted = model.admitted()
+        if admitted:
+            ops.append(("query", int(rng.choice(admitted)),
+                        ("session", "engine")[int(rng.integers(2))]))
+        r = rng.random()
+        if r < 0.5:
+            ops.append(("flush",))
+        elif r < 0.8 and admitted:
+            ops.append(("flush_session", int(rng.choice(admitted))))
+        for t in model.admitted():
+            if pos[t] == lengths[t]:
+                ops.append(("close", t))
+                model.close(t)
+                closed.add(t)
+                if model.free and nxt < len(lengths):
+                    ops.append(("open", nxt))
+                    model.open(nxt)
+                    nxt += 1
+    ops.insert(2 * len(ops) // 3, ("query_all",))
+    return ops
+
+
+class ScriptRunner:
+    """Runs a session op script on an engine and checks it after every op:
+    each query and close bit-exact against the app's oracle of the tenant's
+    tuples so far, the engine's slot table, queue, free slots and every
+    session's backlog equal to ``SlotModel``'s.  Records the answers, the
+    query latencies by scope, the lanes busy and granted after each engine
+    flush, and the slot table after each op.  The runner's position and
+    model carry across engines (a recovered engine continues the script)."""
+
+    def __init__(self, ops, streams, oracle, slots: int, full_check: bool = True):
+        self.ops, self.streams, self.oracle = ops, streams, oracle
+        self.full_check = full_check
+        self.model = SlotModel(slots, CHUNK)
+        self.pos = [0] * len(streams)
+        self.want = [0] * len(streams)       # the running oracle by tenant
+        self.answers, self.slot_log, self.lat = {}, [], {"session": [], "engine": []}
+        self.busy, self.granted, self.i, self.queued_opens = [], [], 0, 0
+
+    def _take(self, t, n):
+        d = self.streams[t][self.pos[t]:self.pos[t] + n]
+        self.pos[t] += n
+        self.want[t] = self.want[t] + self.oracle(d[:, 0])
+        return d
+
+    def _answer(self, t, got):
+        assert np.array_equal(got, self.want[t]), \
+            f"op {self.i}: tenant {t} differs from the oracle of its tuples so far"
+
+    def run(self, eng, stop=None, stop_steps=None, mark=None):
+        """Ops from the current one up to ``stop`` (or until the engine's
+        batched chunk steps reach ``stop_steps``); ``mark``: the op index
+        before which the engine state is kept in ``self.marked``."""
+        while self.i < len(self.ops) and (stop is None or self.i < stop):
+            if stop_steps is not None and lane_steps(eng) >= stop_steps:
+                break
+            if self.i == mark:
+                self.marked = engine_state(eng)
+            self.step(eng, self.ops[self.i])
+            self.i += 1
+
+    def step(self, eng, op):
+        m, kind = self.model, op[0]
+        if kind == "storm":
+            firsts = [self._take(t, n) for t, n in zip(op[1], op[2])]
+            assert eng.open_batch([f"tenant{t}" for t in op[1]], first=firsts) == op[1]
+            for t, n in zip(op[1], op[2]):
+                m.open(t)
+                m.pending[t] += n
+            for t in op[1]:
+                if t in m.admitted():
+                    m.pending[t] %= CHUNK
+        elif kind == "open":
+            assert eng.open(f"tenant{op[1]}") == op[1]
+            m.open(op[1])
+            self.queued_opens += op[1] in m.queue
+        elif kind == "append":
+            eng.append(op[1], self._take(op[1], op[2]))
+            m.pending[op[1]] += op[2]
+        elif kind == "query":
+            t0 = time.perf_counter()
+            got = eng.query(op[1], scope=op[2])
+            self.lat[op[2]].append(1e3 * (time.perf_counter() - t0))
+            if op[2] == "engine":
+                m.flush(force=(op[1],))
+            m.pending[op[1]] = 0
+            self._answer(op[1], got)
+            self.answers[self.i] = got
+        elif kind == "query_all":
+            got = {t: eng.query(t) for t in m.admitted()}
+            for t, a in got.items():
+                m.pending[t] = 0
+                self._answer(t, a)
+            self.answers[self.i] = got
+        elif kind == "flush":
+            eng.flush()
+            m.flush()
+            granted = int((eng._sec_assign >= 0).sum())
+            self.busy.append(len(m.admitted()) + granted)
+            self.granted.append(granted)
+        elif kind == "flush_session":
+            eng.flush_session(op[1])
+            m.pending[op[1]] = 0
+        elif kind == "close":
+            got, _ = eng.close(op[1])
+            self._answer(op[1], got)
+            if self.full_check:
+                assert np.array_equal(got, self.oracle(self.streams[op[1]][:self.pos[op[1]], 0])), \
+                    f"tenant {op[1]} differs from the oracle of its whole stream"
+            m.close(op[1])
+            self.answers[self.i] = got
+        assert eng._slot_sid == m.slot_sid and list(eng._queue) == m.queue \
+            and sorted(eng._free_slots) == m.free, f"op {self.i} {kind}: slot table or queue"
+        for sid, n in m.pending.items():
+            assert eng.sessions[sid].backlog_tuples == n, \
+                f"op {self.i} {kind}: session {sid} holds {eng.sessions[sid].backlog_tuples}, not {n}"
+        self.slot_log.append((tuple(eng._slot_sid), tuple(eng._queue),
+                              tuple(eng._sec_assign.tolist())))
+
+
+def lane_steps(eng, since: int = 0) -> int:
+    """Batched chunk steps of an engine's flushes (its telemetry rows from
+    ``since``): each is one chunk step of the lanes, one PE launch."""
+    return sum(r["lane_width"] for r in list(eng._telemetry)[since:])
+
+
+def engine_state(eng) -> dict:
+    return {"flush_no": eng._flush_no, "slot_sid": list(eng._slot_sid),
+            "queue": list(eng._queue), "sec_assign": eng._sec_assign.tolist(),
+            "backlogs": {sid: s.backlog_tuples for sid, s in eng.sessions.items()}}
+
+
+def int_rows(eng) -> list:
+    """The integer fields of an engine's telemetry rows (the wall-clock
+    milliseconds and the build counters left out)."""
+    return [{k: v for k, v in r.items() if not k.endswith("_ms") and k != "n_retraces"}
+            for r in eng._telemetry]
+
+
+def session_summary(eng, drv, run_s: float) -> dict:
+    rows = list(eng._telemetry)
+    eng_rows = [r for r in rows if r["scope"] == "engine"]
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None
+    return {"tuples": int(sum(drv.pos)), "run_s": run_s,
+            "engine_flush_tuples_per_s": sum(r["tuples"] for r in eng_rows)
+            / (1e-3 * sum(r["flush_ms"] for r in eng_rows)),
+            "query_ms": {s: {"n": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                         for s, v in drv.lat.items()},
+            "flushes": {s: sum(r["scope"] == s for r in rows)
+                        for s in ("engine", "session", "admit")},
+            "batched_chunks": lane_steps(eng), "slot_reschedules": eng.slot_reschedules,
+            "grants_max": max(drv.granted, default=0),
+            "busy_lanes_mean": float(np.mean(drv.busy)) if drv.busy else 0.0,
+            "busy_lanes_max": max(drv.busy, default=0)}
+
+
+def session_path(dev) -> tuple[dict, dict]:
+    """Phase 12: SessionEngine at the paper's scale and shape (M = 16,
+    X = 14, chunks of CHUNK) on the default obs bundle.  (a) HISTO (512
+    bins, domain 2^20), SESSION_SLOTS lanes, aot_buckets=SESSION_AOT: 24
+    tenants at Zipf alpha cycling SESSION_ALPHAS, ~SESSION_TUPLES tuples in
+    all, through ``session_script``'s ops, every answer against the oracle,
+    the slot table against FIFO admission, no build event after warmup(),
+    route_accumulate once per batched chunk step; the first
+    SESSION_PARITY_CHUNKS batched chunks of the same ops on a CPU engine
+    with identical answers, slot tables and integer telemetry.  (b) the same
+    ops on a DurableSessionEngine (checkpoint_every=4, keep=3), dropped
+    without shutdown two thirds through and recovered on the card: answers,
+    backlogs and slot table as (a)'s at that point, a checkpoint restored,
+    fewer records replayed than logged, then the rest with (a)'s checks.
+    (c) HHD (depth 4, width 1024), 8 tenants at alpha 3 with secondary
+    grants: cms_update over [16 * 30, 4, 1024] lanes, answers against the
+    oracle.  (d) DP (radix 8) on a SessionEngine(secondary_slots=0) of 4
+    tenants of DP_SESSION_TUPLES at alpha 0-3, DP_SESSION_CAPACITY slots a
+    PE: partitions against the oracle as multisets, no cursor at the
+    capacity, no PE kernel launched.  Returns the printed records and the
+    launch counts of the op scripts' runs."""
+    import shutil
+
+    from repro_torch import obs as obs_lib
+    from repro_torch.apps import dp, hhd, histo
+    from repro_torch.core import compilemon
+    from repro_torch.data.zipf import zipf_tuples
+    from repro_torch.serve import DurableSessionEngine, SessionEngine
+
+    rng = np.random.default_rng(SEED + 12)
+    launches = {"route_accumulate": 0, "cms_update": 0}
+    primary, secondary = SESSION_SLOTS
+    kw = dict(num_pri=16, num_sec=STREAM_X, chunk_size=CHUNK, primary_slots=primary,
+              secondary_slots=secondary, aot_buckets=SESSION_AOT, telemetry_cap=None)
+    hspec = histo.make_spec(512, 1 << 20, 16)
+    horacle = lambda k: histo.oracle(k, 512, 1 << 20, 16)
+    out = {}
+    t0 = time.perf_counter()
+    weights = 1 + np.arange(SESSION_TENANTS) % 3
+    lengths = [int(SESSION_TUPLES * w / weights.sum()) - int(rng.integers(0, CHUNK))
+               for w in weights]
+    streams = [zipf_tuples(n, 1 << 20, SESSION_ALPHAS[t % len(SESSION_ALPHAS)],
+                           seed=SEED + 500 + t) for t, n in enumerate(lengths)]
+    ops = session_script(lengths, rng, storm=primary, wave_a=primary, slots=primary)
+    crash_at = next(i for i, op in enumerate(ops) if op[0] == "query_all")
+    data_s = time.perf_counter() - t0
+
+    with obs_lib.region("phase12") as region:
+        # ---- (a) HISTO sessions on the card
+        eng = SessionEngine(hspec, device=dev, obs=obs_lib.get_default(), **kw)
+        aot = eng.warmup(dtype=np.int32, feat_shape=(2,))
+        snap = compilemon.snapshot()
+        drv = ScriptRunner(ops, streams, horacle, primary)
+        torch.cuda.synchronize()
+        reset_counts()                    # ---- the main path from here
+        t0 = time.perf_counter()
+        drv.run(eng, mark=crash_at)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = pe_counts()              # ---- to here
+        assert not any(lm_counts().values()), lm_counts()
+        assert counts == {"route_accumulate": lane_steps(eng), "cms_update": 0}, counts
+        assert compilemon.since(snap).n_compiles == 0, "a build event after warmup()"
+        assert drv.i == len(ops) and all(eng.sessions[t].closed for t in range(len(lengths)))
+        assert drv.queued_opens == primary, drv.queued_opens
+        for k, c in counts.items():
+            launches[k] += c
+        rec = session_summary(eng, drv, run_s)
+        rec.update({"tenants": len(lengths), "ops": len(ops), "data_s": data_s, "aot": aot,
+                    "slots": SESSION_SLOTS, "launches": counts, "oracle_exact": True,
+                    "queued_opens": drv.queued_opens})
+        # the first batched chunks of the same ops on the CPU
+        t0 = time.perf_counter()
+        cpu = SessionEngine(hspec, device="cpu", obs=False, **kw)
+        cpu.warmup(dtype=np.int32, feat_shape=(2,))
+        cdrv = ScriptRunner(ops, streams, horacle, primary, full_check=False)
+        cdrv.run(cpu, stop_steps=SESSION_PARITY_CHUNKS)
+        for i, ans in cdrv.answers.items():
+            want = drv.answers[i]
+            assert (ans.keys() == want.keys() and all(np.array_equal(ans[k], want[k])
+                                                      for k in ans)) \
+                if isinstance(ans, dict) else np.array_equal(ans, want), f"cpu op {i}"
+        assert cdrv.slot_log == drv.slot_log[:cdrv.i], "card and CPU slot tables differ"
+        assert int_rows(cpu) == int_rows(eng)[:len(cpu._telemetry)], \
+            "card and CPU telemetry differ"
+        rec["cpu_parity"] = {"batched_chunks": lane_steps(cpu), "ops": cdrv.i,
+                             "s": time.perf_counter() - t0}
+        out["session"] = rec
+        del cpu, cdrv, eng
+
+        # ---- (b) the same ops, durable, crashed and recovered
+        ddir = REPO / "build" / "phase12_durable"
+        shutil.rmtree(ddir, ignore_errors=True)
+        bobs = obs_lib.Observability()
+        deng = DurableSessionEngine(hspec, directory=ddir, checkpoint_every=4, keep=3,
+                                    wal_sync=False, device=dev, obs=bobs, **kw)
+        deng.warmup(dtype=np.int32, feat_shape=(2,))
+        ddrv = ScriptRunner(ops, streams, horacle, primary, full_check=False)
+        reset_counts()
+        t0 = time.perf_counter()
+        ddrv.run(deng, stop=crash_at)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        counts = pe_counts()
+        assert counts == {"route_accumulate": lane_steps(deng), "cms_update": 0}, counts
+        for k, c in counts.items():
+            launches[k] += c
+        deng._mgr.wait()                  # the async checkpoint in flight reaches disk
+        crashed, deng = deng, None        # dropped without shutdown or drain
+        records = sum(v for n, _, v in obs_lib.parse_prometheus(
+            bobs.registry.prometheus_text()) if n == "wal_records_total")
+        t0 = time.perf_counter()
+        reng = SessionEngine.recover(hspec, ddir, device=dev, obs=bobs)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        info = reng.recovery_info
+        assert info["checkpoint_step"] is not None, info
+        assert info["replayed_records"] < records and info["replay_anomalies"] == 0, info
+        assert engine_state(reng) == drv.marked, "the recovered engine differs from (a)"
+        snap, n0 = compilemon.snapshot(), len(reng._telemetry)
+        reset_counts()
+        t0 = time.perf_counter()
+        ddrv.run(reng)
+        torch.cuda.synchronize()
+        post_s = time.perf_counter() - t0
+        counts = pe_counts()
+        assert counts == {"route_accumulate": lane_steps(reng, n0), "cms_update": 0}, counts
+        assert compilemon.since(snap).n_compiles == 0, "a build event after recovery"
+        for k, c in counts.items():
+            launches[k] += c
+        for i, want in drv.answers.items():
+            got = ddrv.answers[i]
+            assert (got.keys() == want.keys() and all(np.array_equal(got[k], want[k])
+                                                      for k in got)) \
+                if isinstance(want, dict) else np.array_equal(got, want), f"durable op {i}"
+        t0 = time.perf_counter()
+        reng.checkpoint(block=True)
+        ckpt_ms = 1e3 * (time.perf_counter() - t0)
+        samples = {n: v for n, lbl, v in obs_lib.parse_prometheus(bobs.registry.prometheus_text())
+                   if not lbl}
+        wal_bytes = samples["wal_bytes_total"]
+        out["durability"] = {
+            "ops_before_crash": crash_at, "run_s_before_crash": pre_s,
+            "run_s_after_recovery": post_s, "recover_s": recover_s, "recovery": info,
+            "records_logged_before_crash": records, "checkpoint_ms_blocking": ckpt_ms,
+            "checkpoints": samples["checkpoints_total"], "wal_bytes": wal_bytes,
+            "wal_mb_per_s_append": wal_bytes / 1e6 / (1e-3 * samples["wal_append_ms_sum"]),
+            "wal_mb_per_s_run": wal_bytes / 1e6 / (pre_s + post_s),
+            "query_ms": session_summary(reng, ddrv, pre_s + post_s)["query_ms"],
+            "answers_equal_uninterrupted": True, "launches": counts}
+        reng.shutdown()
+        crashed.shutdown()
+        shutil.rmtree(ddir, ignore_errors=True)
+        del reng, crashed, drv, ddrv, streams
+
+        # ---- (c) HHD sessions at alpha 3: cms_update over the lanes
+        cspec = hhd.make_spec(4, 1024, 16)
+        clen = [HHD_SESSION_TUPLES * (1 + t % 4) // 2 - int(rng.integers(0, CHUNK))
+                for t in range(primary)]
+        cstreams = [zipf_tuples(n, 1 << 20, 3.0, seed=SEED + 600 + t)
+                    for t, n in enumerate(clen)]
+        cops = session_script(clen, rng, storm=primary, wave_a=0, slots=primary)
+        ceng = SessionEngine(cspec, device=dev, obs=obs_lib.get_default(), **kw)
+        ceng.warmup(dtype=np.int32, feat_shape=(2,))
+        cdrv = ScriptRunner(cops, cstreams, lambda k: hhd.oracle(k, 4, 1024, 16), primary)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        cdrv.run(ceng)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = pe_counts()
+        assert counts == {"route_accumulate": 0, "cms_update": lane_steps(ceng)}, counts
+        assert max(cdrv.granted) > 0, "no secondary lane was granted"
+        for k, c in counts.items():
+            launches[k] += c
+        crec = session_summary(ceng, cdrv, run_s)
+        crec.update({"tenants": primary, "lanes_x_pes": (primary + secondary) * (16 + STREAM_X),
+                     "launches": counts, "oracle_exact": True})
+        out["session"]["hhd"] = crec
+        del ceng, cdrv, cstreams
+        torch.cuda.empty_cache()
+
+        # ---- (d) DP under lanes: 4 tenants, no secondary slots
+        spec = dp.make_spec(8, 16, DP_SESSION_CAPACITY)
+        dstreams = [zipf_tuples(DP_SESSION_TUPLES - (t * 977) % CHUNK, 1 << 20, float(t),
+                                seed=SEED + 700 + t) for t in range(4)]
+        deng = SessionEngine(spec, num_pri=16, num_sec=STREAM_X, chunk_size=CHUNK,
+                             primary_slots=4, secondary_slots=0, device=dev,
+                             obs=obs_lib.get_default(), telemetry_cap=None)
+        sids = [deng.open(f"dp{t}") for t in range(4)]
+        pieces = [np.array_split(s, 8 + t) for t, s in enumerate(dstreams)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in range(max(len(p) for p in pieces)):
+            for sid, p in zip(sids, pieces):
+                if r < len(p):
+                    deng.append(sid, p[r])
+            deng.flush()
+        closed = [deng.close(sid)[0] for sid in sids]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = pe_counts()
+        assert counts == {"route_accumulate": 0, "cms_update": 0}, counts
+        assert not any(lm_counts().values()), lm_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        t0 = time.perf_counter()
+        cursors = []
+        for t, bufs in enumerate(closed):
+            cursors.append(int(bufs.cursor.max()))
+            assert cursors[-1] < DP_SESSION_CAPACITY, \
+                f"dp tenant {t}: a PE wrote {cursors[-1]} tuples, capacity {DP_SESSION_CAPACITY}"
+            parts = dp.partitions_from_buffers(bufs, 256)
+            assert sum(len(p) for p in parts) == len(dstreams[t])
+            for p, (got, want) in enumerate(zip(parts, dp.oracle(dstreams[t], 8))):
+                assert dp.multiset_equal(got, want), f"dp tenant {t}: partition {p}"
+        rows = list(deng._telemetry)
+        eng_rows = [r for r in rows if r["scope"] == "engine"]
+        out["session_dp"] = {
+            "tenants": 4, "tuples": sum(len(s) for s in dstreams), "run_s": run_s,
+            "engine_flush_tuples_per_s": sum(r["tuples"] for r in eng_rows)
+            / (1e-3 * sum(r["flush_ms"] for r in eng_rows)),
+            "batched_chunks": lane_steps(deng), "capacity_per_pe": DP_SESSION_CAPACITY,
+            "state_gb": 4 * (16 + STREAM_X) * DP_SESSION_CAPACITY * 12 / 1e9,
+            "peak_mem_gb": peak_gb, "max_cursor_by_tenant": cursors,
+            "check_s": time.perf_counter() - t0, "launches": counts, "oracle_exact": True}
+        del deng, closed, dstreams
+        torch.cuda.empty_cache()
+    out["session"]["compilemon_phase12"] = dataclasses.asdict(region.inclusive)
+    return out, launches
 
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
 
@@ -1516,6 +2007,16 @@ def main() -> int:
         launches[k] += c
     rec["phase_s"] = time.perf_counter() - t0
     print("stream", json.dumps(rec))
+    torch.cuda.empty_cache()
+
+    # ---- 12. SessionEngine, its durability, HHD and DP sessions
+    t0 = time.perf_counter()
+    recs, counts = session_path(dev)
+    for k, c in counts.items():
+        launches[k] += c
+    recs["session"]["phase_s"] = time.perf_counter() - t0
+    for key in ("session", "durability", "session_dp"):
+        print(key, json.dumps(recs[key]))
     torch.cuda.empty_cache()
     for k in kernels:                     # every main path's count, summed
         k["launches"] = launches[k["name"]]

@@ -54,39 +54,50 @@ def make_spec(radix_bits: int, num_pri: int, capacity_per_pe: int) -> DittoSpec:
     def pe_update(bufs: DPBuffers, eff, idx, value):
         """Append each tuple at its effective PE's cursor, in stream order;
         writes ``out`` and ``dst_part`` in place.  A tuple whose eff lies
-        outside [0, num_pe) (the executor's masked sentinel) is dropped."""
-        num_pe, cap = bufs.out.shape[:2]
+        outside [0, num_pe) (the executor's masked sentinel) is dropped.
+        Lanes-stacked buffers ([L, num_pe, ...]) take eff [L, T], idx
+        [L, T] and value [L, T, 2]: each lane appends to its own regions."""
+        if eff.dim() == 1:
+            one = pe_update(DPBuffers(out=bufs.out[None], cursor=bufs.cursor[None],
+                                      dst_part=bufs.dst_part[None]),
+                            eff[None], idx[None], value[None])
+            return DPBuffers(out=bufs.out, cursor=one.cursor[0], dst_part=bufs.dst_part)
+        lanes, t = eff.shape
+        num_pe, cap = bufs.out.shape[1:3]
         pes = torch.arange(num_pe, dtype=eff.dtype, device=eff.device)
         # the rank of each tuple within its PE's sub-stream of this chunk,
-        # scanned along the last axis of a [num_pe, T] one-hot
-        onehot = (eff[None, :] == pes[:, None]).to(torch.int32)
-        incl = torch.cumsum(onehot, dim=1, dtype=torch.int32)
-        cursor = bufs.cursor + incl[:, -1]
+        # scanned along the last axis of a per-lane [L, num_pe, T] one-hot
+        onehot = (eff[:, None, :] == pes[None, :, None]).to(torch.int32)
+        incl = torch.cumsum(onehot, dim=2, dtype=torch.int32)
+        cursor = bufs.cursor + incl[:, :, -1]
         kept = (eff >= 0) & (eff < num_pe)
         e = eff.clamp(0, num_pe - 1).long()
-        rank = (incl - onehot).gather(0, e[None])[0]
-        slot = (bufs.cursor[e] + rank).clamp(max=cap - 1)
+        lane = torch.arange(lanes, device=eff.device)[:, None].expand(lanes, t)
+        rank = (incl - onehot).gather(1, e[:, None, :])[:, 0]
+        slot = (bufs.cursor.gather(1, e) + rank).clamp(max=cap - 1)
         # a dropped tuple writes back what its spare slot, the one after PE
         # e's new cursor, already holds.  When the chunk fills PE e to its
         # capacity, that slot is the last one, which PE e's last kept tuple
         # of the chunk writes: the dropped tuple then writes that tuple's
         # value and tag, so the duplicate writes carry the same bytes and
         # their order no longer matters
-        spare = cursor[e].clamp(max=cap - 1).long()
-        last = (onehot * torch.arange(1, eff.shape[0] + 1, dtype=torch.int32,
-                                      device=eff.device)).amax(dim=1) - 1
-        writer = last[e]
-        taken = ~kept & (cursor[e] >= cap) & (writer >= 0)
+        end = cursor.gather(1, e)
+        spare = end.clamp(max=cap - 1).long()
+        last = (onehot * torch.arange(1, t + 1, dtype=torch.int32,
+                                      device=eff.device)).amax(dim=2) - 1
+        writer = last.gather(1, e)
+        taken = ~kept & (end >= cap) & (writer >= 0)
         w = writer.clamp(min=0).long()
         value = value.to(torch.int32)
         idx = idx.to(torch.int32)
         slot = torch.where(kept, slot, spare).long()
-        value = torch.where(kept[:, None], value,
-                            torch.where(taken[:, None], value[w], bufs.out[e, spare]))
+        value = torch.where(kept[..., None], value,
+                            torch.where(taken[..., None], value[lane, w],
+                                        bufs.out[lane, e, spare]))
         part = torch.where(kept, idx,
-                           torch.where(taken, idx[w], bufs.dst_part[e, spare]))
-        bufs.out.index_put_((e, slot), value)
-        bufs.dst_part.index_put_((e, slot), part)
+                           torch.where(taken, idx[lane, w], bufs.dst_part[lane, e, spare]))
+        bufs.out.index_put_((lane, e, slot), value)
+        bufs.dst_part.index_put_((lane, e, slot), part)
         return DPBuffers(out=bufs.out, cursor=cursor, dst_part=bufs.dst_part)
 
     def merge(bufs: DPBuffers, plan: RoutePlan) -> DPBuffers:
@@ -103,10 +114,12 @@ def make_spec(radix_bits: int, num_pri: int, capacity_per_pe: int) -> DittoSpec:
 def partitions_from_buffers(bufs: DPBuffers, num_parts: int) -> list[np.ndarray]:
     """Host-side region gather: partition p is the concatenation over PEs
     of the slots tagged p, in PE order, then slot order.  One stable sort by
-    partition over the written slots, taken in that order."""
-    cursor = bufs.cursor.tolist()
-    rows = torch.cat([bufs.out[pe, :n] for pe, n in enumerate(cursor)]).cpu().numpy()
-    tags = torch.cat([bufs.dst_part[pe, :n] for pe, n in enumerate(cursor)]).cpu().numpy()
+    partition over the written slots, taken in that order.  The fields may
+    be tensors or numpy arrays (a session engine's answer)."""
+    out, dst_part = torch.as_tensor(bufs.out), torch.as_tensor(bufs.dst_part)
+    cursor = torch.as_tensor(bufs.cursor).tolist()
+    rows = torch.cat([out[pe, :n] for pe, n in enumerate(cursor)]).cpu().numpy()
+    tags = torch.cat([dst_part[pe, :n] for pe, n in enumerate(cursor)]).cpu().numpy()
     return _split_by(rows, tags, num_parts)
 
 

@@ -19,7 +19,8 @@ Three shapes share one chunk step (``_build_chunk_step``):
     step.  Where JAX vmaps the scan, every ``ExecState`` leaf here gains a
     leading lanes axis [L] (``stack_states``, ``take_lanes``,
     ``put_lanes``); the PE update sees the lanes as L * (M+X) PEs, so it
-    stays one kernel launch a chunk.
+    stays one kernel launch a chunk.  A spec with its own ``merge`` (DP)
+    keeps per-lane regions: its ``pe_update`` takes the lanes axis itself.
 
 All take an optional per-tuple validity mask beside the chunks: a masked
 tuple goes to the sentinel PriPE M and effective PE M+X, which every
@@ -180,9 +181,9 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         if mask is not None:
             eff = torch.where(mask, eff, num_pe)
 
-        if lanes:
+        if lanes and spec.merge is None:
             buffers = _lane_pe_update(pe_update, state.buffers, eff, idx, value, num_pe)
-        else:
+        else:        # one stream, or a spec whose update takes the lanes axis
             buffers = pe_update(state.buffers, eff, idx, value)
 
         # port-limited cycle model for the monitor and the stats
@@ -318,9 +319,7 @@ class ResumableExecutor:
         chunks: [L, num_chunks, chunk_size, ...]; mask: optional
         bool[L, num_chunks, chunk_size].  Returns (states, ExecStats with
         leaves [L, num_chunks, ...]), lane l equal to ``run_chunks`` of
-        lane l alone; the caller's state stays as it was.  A spec with its
-        own ``merge`` (DP) is not lane-batched."""
-        _refuse_lanes(self.spec)
+        lane l alone; the caller's state stays as it was."""
         chunks = torch.as_tensor(chunks, device=self.device)
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)
@@ -341,21 +340,17 @@ class ResumableExecutor:
     def merge_state(self, state: ExecState):
         """Merged [M, *local] buffers ([L, M, *local] for a lanes-stacked
         state); the SecPE shadows stay intact.  A spec with its own
-        ``merge`` (DP) gets ``spec.merge(buffers, plan)`` instead."""
+        ``merge`` (DP) gets ``spec.merge(buffers, plan)`` instead, of each
+        lane for a lanes-stacked state (stacked on a leading [L] axis)."""
         if self.spec.merge is not None:
-            if state.mode.dim():
-                _refuse_lanes(self.spec)
-            return self.spec.merge(state.buffers, state.plan)
+            if not state.mode.dim():
+                return self.spec.merge(state.buffers, state.plan)
+            lanes = [self.spec.merge(*(_tree_map(lambda x: x[l], part)
+                                       for part in (state.buffers, state.plan)))
+                     for l in range(state.mode.shape[0])]
+            return _tree_map(lambda *xs: torch.stack(xs), *lanes)
         return merger.merge_buffers(state.buffers, state.plan.assignment,
                                     self.num_pri, self.spec.combine)
-
-
-def _refuse_lanes(spec: DittoSpec) -> None:
-    if spec.merge is not None:
-        raise NotImplementedError(
-            f"{spec.name}: a spec with its own merge (non-decomposable "
-            "application) is not lane-batched; run each stream through "
-            "make_executor")
 
 
 def make_resumable_executor(spec: DittoSpec, num_pri: Any,
@@ -504,10 +499,8 @@ def make_multistream_executor(spec: DittoSpec, num_pri: Any,
       mask: optional bool[S, num_chunks, chunk_size] validity mask; ragged
         streams and all-masked pad lanes are exact no-ops.
     The outputs gain a leading [S] axis and equal, lane by lane, each stream
-    run alone through ``make_executor``, bit for bit for integer apps.  A
-    spec with its own ``merge`` (DP) raises NotImplementedError.
+    run alone through ``make_executor``, bit for bit for integer apps.
     """
-    _refuse_lanes(spec)
     res = make_resumable_executor(spec, num_pri, num_sec, chunk_size, device=device,
                                   _who="make_multistream_executor", **kw)
 

@@ -71,7 +71,10 @@ class DittoSpec:
     merge: optional custom (buffers, plan) -> merged, for a non-decomposable
       application (the paper's data partitioning), whose buffers may be a
       frozen dataclass of tensors.  Without it the executor folds the SecPE
-      shadows into their PriPEs by ``combine``.
+      shadows into their PriPEs by ``combine``.  A spec with its own merge
+      keeps per-PE regions that lanes cannot share, so its ``pe_update``
+      also takes lanes-stacked buffers [L, num_pe, ...] with eff, idx and
+      value [L, T, ...]; every other spec sees the lanes as more PEs.
     """
 
     name: str

@@ -1,8 +1,16 @@
 """Serving of the port: batched greedy decode and a continuous-batching
 slot engine over the LM's KV caches, and multi-tenant analytics serving
-over the lane-batched Ditto executor (``engine``); the serving stack's
-error taxonomy (``errors``)."""
+over the lane-batched Ditto executor (``engine``); continuous-batching
+sessions over the same lanes (``session``) and their write-ahead log,
+lane-state checkpoints and crash recovery (``durability``); the serving
+stack's error taxonomy (``errors``)."""
+from repro_torch.serve.durability import (DurableSessionEngine, WriteAheadLog,
+                                          recover)
 from repro_torch.serve.engine import (DecodeEngine, Request, StreamEngine,
                                       StreamRequest)
+from repro_torch.serve.errors import EnginePreempted
+from repro_torch.serve.session import SessionEngine, SessionStats
 
-__all__ = ["DecodeEngine", "Request", "StreamEngine", "StreamRequest"]
+__all__ = ["DecodeEngine", "DurableSessionEngine", "EnginePreempted", "Request",
+           "SessionEngine", "SessionStats", "StreamEngine", "StreamRequest",
+           "WriteAheadLog", "recover"]

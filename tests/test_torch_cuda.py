@@ -626,3 +626,143 @@ def test_multistream_on_card_matches_cpu(cuda_device, app):
     assert torch.equal(m_gpu, m_cpu)
     for f in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
         assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)), f
+
+
+def _session_script(eng, seed=0, rounds=6, close_all=True):
+    """A seeded op script over a session engine: a storm, opens that queue,
+    ragged appends, queries in both scopes, engine and per-session flushes
+    and closes (of every session at the end with ``close_all``).  Returns
+    every answer in order."""
+    rng = np.random.default_rng(seed)
+    chunk = eng.chunk_size
+    feed = lambda n, a: zipf_tuples(n, 1 << 20, a, seed=int(rng.integers(1 << 30)))
+    answers = []
+    sids = eng.open_batch([f"s{i}" for i in range(3)],
+                          first=[feed(2 * chunk + 17, 2.0), feed(chunk, 0.0), None])
+    sids += [eng.open(f"o{i}") for i in range(3)]
+    for r in range(rounds):
+        for sid in sids:
+            if not eng.sessions[sid].closed:
+                eng.append(sid, feed(int(rng.integers(0, 3 * chunk)), (0.0, 3.0)[sid % 2]))
+        live = [s for s in sids if not eng.sessions[s].closed
+                and eng.sessions[s].slot is not None]
+        if r % 2 == 0:
+            eng.flush()
+        else:
+            eng.flush_session(live[0])
+        answers.append(eng.query(live[-1], scope=("session", "engine")[r % 2]))
+        if r in (2, 4):
+            answers.append(eng.close(live[0])[0])
+    for sid in sids if close_all else ():
+        if not eng.sessions[sid].closed:
+            answers.append(eng.close(sid)[0])
+    return answers
+
+
+def _session_kw():
+    return dict(num_pri=4, num_sec=2, chunk_size=256, primary_slots=3, secondary_slots=2,
+                aot_buckets=2)
+
+
+@pytest.mark.cuda
+def test_session_engine_on_card_matches_cpu(cuda_device):
+    """The same op script through a HISTO SessionEngine on the card and on
+    the CPU: identical answers, slot tables and integer telemetry fields;
+    route_accumulate launches once per batched chunk step (the rows' lane
+    widths), and no build event after warmup()."""
+    from repro_torch.core import compilemon
+    from repro_torch.serve import SessionEngine
+    spec = histo.make_spec(512, 1 << 20, 4)
+    runs = []
+    compilemon.install()
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = SessionEngine(spec, device=dev, **_session_kw())
+        eng.warmup(dtype=np.int32, feat_shape=(2,))
+        before, snap = route_accumulate.launches, compilemon.snapshot()
+        answers = _session_script(eng)
+        rows = [{k: v for k, v in r.items() if not k.endswith("ms")} for r in eng._telemetry]
+        if dev.type == "cuda":
+            assert route_accumulate.launches - before == sum(r["lane_width"] for r in rows)
+            assert compilemon.since(snap).n_compiles == 0
+        runs.append((answers, rows, list(eng._slot_sid), eng._sec_assign.tolist()))
+    (a_gpu, r_gpu, s_gpu, g_gpu), (a_cpu, r_cpu, s_cpu, g_cpu) = runs
+    assert len(a_gpu) == len(a_cpu)
+    for x, y in zip(a_gpu, a_cpu):
+        assert np.array_equal(x, y)
+    assert r_gpu == r_cpu and s_gpu == s_cpu and g_gpu == g_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first,then", [("cpu", "cuda"), ("cuda", "cpu")])
+def test_durable_directory_moves_between_devices(cuda_device, tmp_path, first, then):
+    """A durable directory written on one device, abandoned mid-stream,
+    recovers on the other with the answers, slot table and backlogs of an
+    uninterrupted run on the first."""
+    from repro_torch.serve import DurableSessionEngine, SessionEngine
+    spec = histo.make_spec(512, 1 << 20, 4)
+    engines = {}
+    for name in ("crashed", "reference"):
+        eng = DurableSessionEngine(spec, directory=tmp_path / name, device=first,
+                                   checkpoint_every=2, **_session_kw())
+        _session_script(eng, seed=5, rounds=3, close_all=False)
+        eng._mgr.wait()
+        engines[name] = eng
+    ref = engines["reference"]
+    rec = SessionEngine.recover(spec, tmp_path / "crashed", device=then)
+    assert rec.device.type == then and rec.recovery_info["replay_anomalies"] == 0
+    assert rec._slot_sid == ref._slot_sid and list(rec._queue) == list(ref._queue)
+    assert {s: x.backlog_tuples for s, x in rec.sessions.items()} == \
+        {s: x.backlog_tuples for s, x in ref.sessions.items()}
+    for sid, s in ref.sessions.items():
+        if s.slot is not None:
+            assert np.array_equal(rec.query(sid), ref.query(sid))
+    rec.shutdown()
+    for eng in engines.values():
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_dp_scan_lanes_on_card_matches_cpu(cuda_device):
+    """DP under lanes on the card equals the CPU slot for slot (regions,
+    cursors, tags and stats), and no PE kernel launches."""
+    from repro_torch.apps import dp
+    from repro_torch.core import executor
+    spec = dp.make_spec(8, 16, 1 << 14)
+    lanes, chunks, chunk = 4, 5, 4096
+    tuples = np.stack([zipf_tuples(chunks * chunk, 1 << 20, 1.0 * l, seed=l)
+                       for l in range(lanes)]).reshape(lanes, chunks, chunk, 2)
+    mask = np.ones((lanes, chunks, chunk), bool)
+    mask[1, -1, 700:] = False
+    mask[-1] = False
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = (route_accumulate.launches, cms_update.launches)
+        res = executor.make_resumable_executor(spec, 16, 14, chunk, device=dev)
+        st, stats = res.scan_lanes(executor.stack_states(res.init_state(), lanes),
+                                   torch.as_tensor(tuples), torch.as_tensor(mask))
+        assert (route_accumulate.launches, cms_update.launches) == before
+        outs.append(({f: getattr(st.buffers, f).cpu() for f in ("out", "cursor", "dst_part")},
+                     stats))
+    (b_gpu, s_gpu), (b_cpu, s_cpu) = outs
+    for f in b_gpu:
+        assert torch.equal(b_gpu[f], b_cpu[f]), f
+    for f in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
+        assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)), f
+
+
+@pytest.mark.cuda
+def test_no_build_event_after_warmup(cuda_device):
+    """warmup() builds and loads the PE kernels; afterwards a ragged HHD
+    session workload records no compilemon event on any flush path."""
+    from repro_torch.core import compilemon
+    from repro_torch.serve import SessionEngine
+    compilemon.install()
+    eng = SessionEngine(hhd.make_spec(4, 1024, 4), device=cuda_device, **_session_kw())
+    info = eng.warmup(dtype=np.int32, feat_shape=(2,))
+    assert info["n_executables"] == len(eng._aot)
+    snap = compilemon.snapshot()
+    before = cms_update.launches
+    _session_script(eng, seed=9, rounds=4)
+    assert compilemon.since(snap).n_compiles == 0
+    assert cms_update.launches - before == sum(r["lane_width"] for r in eng._telemetry)
+    assert eng.telemetry_record()["extra"]["totals"]["n_retraces"] == 0

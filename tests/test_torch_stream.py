@@ -241,17 +241,24 @@ def test_multistream_dense_without_mask_equals_jax():
 
 
 def test_dp_under_lanes_raises():
+    """DP runs under lanes (each lane appends to its own regions; parity in
+    tests/test_torch_session.py).  What still raises for a spec with its
+    own merge is what no lane layout gives it: a re-merge mid-stream
+    (threshold > 0) and secondary session lanes."""
     spec = dp.make_spec(4, M, 64)
-    with pytest.raises(NotImplementedError, match="not lane-batched"):
-        executor.make_multistream_executor(spec, M, X, CHUNK, device="cpu")
+    with pytest.raises(ValueError, match="re-merge mid-stream"):
+        executor.make_multistream_executor(spec, M, X, CHUNK, threshold=0.5, device="cpu")
+    with pytest.raises(ValueError, match="re-merge mid-stream"):
+        StreamEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK, threshold=0.5,
+                     device="cpu")
+    from repro_torch.serve import SessionEngine
+    with pytest.raises(ValueError, match="secondary_slots=0"):
+        SessionEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK, secondary_slots=1,
+                      device="cpu")
     res = executor.make_resumable_executor(spec, M, X, CHUNK, device="cpu")
-    states = executor.stack_states(res.init_state(), 2)
-    with pytest.raises(NotImplementedError, match="not lane-batched"):
-        res.scan_lanes(states, np.zeros((2, 1, CHUNK, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="not lane-batched"):
-        res.merge_state(states)
-    with pytest.raises(NotImplementedError, match="not lane-batched"):
-        StreamEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK, device="cpu")
+    states, _ = res.scan_lanes(executor.stack_states(res.init_state(), 2),
+                               np.zeros((2, 1, CHUNK, 2), np.int32))
+    assert res.merge_state(states).cursor.shape == (2, M + X)
 
 
 def test_lane_entry_points_default_to_cuda():
