@@ -74,7 +74,7 @@ Phases (any failure exits non-zero before the result lines):
      ragged appends (0-4 chunks plus a tail), queries in both scopes,
      engine and per-session flushes and closes: (a) HISTO (512 bins, domain
      2^20), 8 primary + 8 secondary slots, aot_buckets=8: 24 tenants at
-     Zipf alpha 0-3 and ~2^25 tuples (~256 MB), 8 of them one open_batch
+     Zipf alpha 0-3 and ~2^24 tuples (~128 MB), 8 of them one open_batch
      storm, 16 by open, 8 of which queue; every answer bit-exact against
      the oracle, the slot table and queue against FIFO admission, no build
      event after warmup(), route_accumulate once per batched chunk step,
@@ -93,6 +93,30 @@ Phases (any failure exits non-zero before the result lines):
      re-schedules, batched chunks, busy lanes, a blocking checkpoint's ms,
      WAL bytes and MB/s, recovery seconds and replayed tuples, the build
      monitor's delta).
+ 13. SessionService, the TCP front door, in front of a DurableSessionEngine
+     on the card (phase 12's HISTO shape and slots, checkpoint_every=4,
+     keep=3, warmup() before start()), scored admission, a per-tenant rate
+     limit and the scrape sidecar: 32 tenants at Zipf alpha 0-3, ~2^25
+     tuples (~256 MB) over loopback in ragged appends of up to 2^19 tuples
+     (4 MB frames), from 8 threads with a ServiceClient each and one
+     AsyncServiceClient pipelining its 8 tenants' appends; rate-limited
+     requests sleep their RETRY-AFTER and retry; more opens than the 8
+     primary slots, so opens park.  Two thirds through, the clients pause,
+     the service stops (a parked open gets ERR_BACKPRESSURE) and the engine
+     is dropped without shutdown; recover() on the card, warmup(), a new
+     service, and the clients reconnect and finish.  Every query and close
+     bit-exact against the oracle of the tuples acknowledged by then; every
+     acknowledged append in the recovered engine; no slot held twice;
+     held opens drain to 0; the client-side (op, status) counts equal
+     service_requests_total from /metrics; /healthz and /statusz; a traced
+     request's echo and root span; no build event after either warmup();
+     route_accumulate once per batched chunk step; and ~200 single-client
+     requests with identical responses from a service over a CPU engine and
+     one over a CUDA engine.  Prints the service line (requests/s and
+     client p50/p99 by op, appended and flushed tuples/s, the mean
+     coalesced batch, the worker's busy share, rate-limited and
+     backpressured requests, recovery seconds and replayed tuples, the
+     build monitor's delta).
 Then the MoE language model (moonshot-v1-16b-a3b at full width):
   A. hold onehot_dispatch, onehot_combine and flash_attention against their
      plain versions on CUDA tensors at the prefill and decode shapes:
@@ -119,8 +143,9 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
-count windows of phases 3, 7, 9, 10, 11 and 12: phase 11's windows are its
-four flushes, phase 12's its op script runs), and last {"ok": true, "device":
+count windows of phases 3, 7, 9, 10, 11, 12 and 13: phase 11's windows are
+its four flushes, phase 12's its op script runs, phase 13's the serving
+before the crash and after the recovery), and last {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
@@ -129,6 +154,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -158,11 +184,15 @@ STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
 SESSION_TENANTS, SESSION_SLOTS, SESSION_AOT = 24, (8, 8), 8   # phase 12 (a), (b)
-SESSION_TUPLES = 2**25                       # appended over the op script, ~256 MB
+SESSION_TUPLES = 2**24                       # appended over the op script, ~128 MB
 SESSION_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
 SESSION_PARITY_CHUNKS = 64
 HHD_SESSION_TUPLES = 2**20                   # phase 12 (c): 0.5-2x this a tenant
 DP_SESSION_TUPLES, DP_SESSION_CAPACITY = 2**22, 2**19   # phase 12 (d)
+SERVICE_TENANTS, SERVICE_ASYNC_TENANTS, SERVICE_THREADS = 32, 8, 8   # phase 13
+SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**25, 2**19   # through the socket; 4 MB frames
+SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
+SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1301,6 +1331,546 @@ def session_path(dev) -> tuple[dict, dict]:
     out["session"]["compilemon_phase12"] = dataclasses.asdict(region.inclusive)
     return out, launches
 
+# ---------------------------------------------------------------- phase 13
+
+def device_zipf_tuples(n: int, domain: int, alpha: float, seed: int, dev) -> np.ndarray:
+    """[n, 2] int32 tuples with Zipf(alpha) keys over a permuted domain and
+    random values, drawn on the card from a seeded generator (the inverse
+    CDF of ``data.zipf``, made where it is fast) and copied to the host."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ranks = torch.arange(1, domain + 1, device=dev, dtype=torch.float64)
+    w = ranks.pow(-alpha) if alpha > 0 else torch.ones_like(ranks)
+    cdf = torch.cumsum(w / w.sum(), 0)
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    r = torch.searchsorted(cdf, u, right=True).clamp_(max=domain - 1)
+    keys = torch.randperm(domain, generator=g, device=dev)[r]
+    vals = torch.randint(0, 2**31 - 1, (n,), generator=g, device=dev)
+    return torch.stack([keys, vals], 1).to(torch.int32).cpu().numpy()
+
+
+class Gate:
+    """The clients' way through a crash: a request enters only while the
+    gate is open (``in_flight`` counts it until its answer), so the phase
+    can close the gate, wait until every request still in flight is an open
+    parked in the admission queue, and stop the service with nothing else
+    outstanding.  Reopening hands out the new service's address."""
+
+    def __init__(self, addr):
+        self.cond = threading.Condition()
+        self.open, self.in_flight, self.epoch, self.addr = True, 0, 0, addr
+
+    def enter(self, block: bool = True):
+        with self.cond:
+            while not self.open:
+                if not block:
+                    return None
+                self.cond.wait()
+            self.in_flight += 1
+            return self.epoch, self.addr
+
+    def exit(self):
+        with self.cond:
+            self.in_flight -= 1
+
+    def close(self):
+        with self.cond:
+            self.open = False
+
+    def reopen(self, addr):
+        with self.cond:
+            self.epoch, self.addr, self.open = self.epoch + 1, addr, True
+            self.cond.notify_all()
+
+
+class Tally:
+    """Client-side counts of each (op, status) and latencies of answered
+    requests, shared by every client thread."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.counts, self.ms = {}, {}
+
+    def add(self, op, status, ms=None):
+        with self.lock:
+            self.counts[(op, status)] = self.counts.get((op, status), 0) + 1
+            if ms is not None:
+                self.ms.setdefault(op, []).append(ms)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return dict(self.counts)
+
+
+def tenant_ops(length: int, rng) -> list:
+    """One tenant's script over a stream of ``length`` tuples: ragged
+    appends of 2^4-2^19 tuples (log-uniform, plus a ragged part), a query
+    in either scope after about a third of them, then close."""
+    ops, pos = [], 0
+    while pos < length:
+        n = int(min(length - pos, min(SERVICE_MAX_APPEND, 2 ** rng.uniform(4, 19)
+                                      + rng.integers(0, CHUNK))))
+        ops.append(("append", pos, n))
+        pos += n
+        if rng.random() < 0.3:
+            ops.append(("query", ("session", "engine")[int(rng.integers(2))]))
+    ops.append(("close",))
+    return ops
+
+
+def audit_slots(eng, faults: list):
+    """Wrap the engine's slot-changing calls (on the instance) to check,
+    after each, that no slot is held twice: the held slots, their sessions
+    and the free heap agree."""
+    def check():
+        held = [(slot, sid) for slot, sid in enumerate(eng._slot_sid) if sid is not None]
+        ok = (len({sid for _, sid in held}) == len(held)
+              and not {slot for slot, _ in held} & set(eng._free_slots)
+              and len(held) + len(eng._free_slots) == eng.primary_slots
+              and all(eng.sessions[sid].slot == slot and not eng.sessions[sid].closed
+                      for slot, sid in held))
+        if not ok:
+            faults.append((list(eng._slot_sid), sorted(eng._free_slots)))
+
+    for name in ("open", "open_batch", "close"):
+        fn = getattr(eng, name)
+
+        def audited(*a, _fn=fn, **k):
+            out = _fn(*a, **k)
+            check()
+            return out
+        setattr(eng, name, audited)
+
+
+def service_counts(text: str) -> dict:
+    """{(op, status): n} of ``service_requests_total`` in a /metrics body."""
+    from repro_torch.obs import parse_prometheus
+    return {(lbl["op"], lbl["status"]): int(v) for n, lbl, v in parse_prometheus(text)
+            if n == "service_requests_total" and v}
+
+
+def service_twin(dev, kw, hspec) -> dict:
+    """The same ~SERVICE_TWIN_OPS single-client requests through a service
+    over a CPU engine and one over a CUDA engine: identical response metas
+    (trace ids and timings left out) and payload bytes."""
+    from repro_torch.serve import SessionEngine
+    from repro_torch.serve.service import (ServiceClient, ServiceConfig, SessionService,
+                                           encode_frame)
+    rng = np.random.default_rng(SEED + 13)
+    sides = []
+    for where in (dev, torch.device("cpu")):
+        eng = SessionEngine(hspec, device=where, obs=False, **kw)
+        eng.warmup(dtype=np.int32, feat_shape=(2,))
+        svc = SessionService(eng, ServiceConfig(admission="scored"))
+        svc.start()
+        sides.append((svc, ServiceClient(*svc.address, timeout=600, trace=False)))
+    t0 = time.perf_counter()
+    live, n_tenant, seq, bytes_equal = [], 0, 0, 0
+
+    def send(meta, payload=b""):
+        nonlocal seq, bytes_equal
+        seq += 1
+        frame = encode_frame(dict(meta, id=seq), payload)
+        for _, c in sides:
+            c.send_raw(frame)
+        (gm, gp), (cm, cp) = [c.read_response() for _, c in sides]
+        for m in (gm, cm):                    # wall-clock totals differ
+            for k in ("compile_stall_ms", "admit_stall_ms"):
+                m.get("stats", {}).get("totals", {}).pop(k, None)
+        assert gm == cm and gp == cp, f"twin request {seq} {meta['op']}: {gm} != {cm}"
+        bytes_equal += len(gp)
+        return gm
+
+    while seq < SERVICE_TWIN_OPS:
+        r = rng.random()
+        if (r < 0.15 or not live) and len(live) < kw["primary_slots"]:
+            live.append(send({"op": "open", "tenant": f"twin{n_tenant % 5}"})["sid"])
+            n_tenant += 1
+        elif r < 0.6:
+            n = int(rng.integers(0, 3 * CHUNK))
+            keys = (rng.zipf(1.5, n) % (1 << 20)).astype(np.int32)
+            a = np.stack([keys, rng.integers(0, 1 << 30, n).astype(np.int32)], 1)
+            send({"op": "append", "sid": int(rng.choice(live)),
+                  "array": {"dtype": a.dtype.str, "shape": list(a.shape)}}, a.tobytes())
+        elif r < 0.85:
+            send({"op": "query", "sid": int(rng.choice(live)),
+                  "scope": ("session", "engine")[int(rng.integers(2))]})
+        elif r < 0.95:
+            sid = live.pop(int(rng.integers(len(live))))
+            send({"op": "close", "sid": sid})
+        else:
+            send({"op": ("stats", "bogus")[int(rng.integers(2))]})
+    for sid in live:
+        send({"op": "close", "sid": sid})
+    for svc, c in sides:
+        c.close_conn()
+        svc.stop()
+    return {"requests": seq, "payload_bytes_equal": bytes_equal,
+            "s": time.perf_counter() - t0}
+
+
+def service_path(dev) -> tuple[dict, dict]:
+    """Phase 13: SessionService in front of a DurableSessionEngine on the
+    card, HISTO at the paper's scale and shape (512 bins, domain 2^20,
+    M = 16, X = 14, chunks of CHUNK, 8 + 8 lanes, aot_buckets=8,
+    checkpoint_every=4, keep=3), scored admission, a per-tenant rate limit
+    and the scrape sidecar.  SERVICE_TENANTS tenants at Zipf alpha cycling
+    SESSION_ALPHAS, ~SERVICE_TUPLES tuples in all, over loopback from
+    SERVICE_THREADS threads with a ServiceClient each (their tenants one
+    after another) and one AsyncServiceClient that drives its tenants at
+    once with pipelined appends; rate-limited requests sleep their
+    RETRY-AFTER and retry.  About two thirds through, the clients pause,
+    the service stops (parked opens answered ERR_BACKPRESSURE) and the
+    engine is dropped without shutdown; recover() on the card, warmup() and
+    a new service, and the clients reconnect and finish.  Checks: every
+    query and close against the oracle of the tuples acknowledged by then;
+    every acknowledged append in the recovered engine; every open answered;
+    no slot held twice; held opens drain to 0; the client-side (op, status)
+    counts equal service_requests_total from /metrics (at the pause and at
+    the end); /healthz and /statusz; a traced request's echo and root span;
+    no build event after each warmup(); route_accumulate once per batched
+    chunk step; and ``service_twin``.  Returns the printed record and the
+    launch counts of the two serving windows."""
+    import asyncio
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from repro_torch import obs as obs_lib
+    from repro_torch.apps import histo
+    from repro_torch.core import compilemon
+    from repro_torch.serve import DurableSessionEngine, SessionEngine
+    from repro_torch.serve.errors import BackpressureError, RateLimitedError
+    from repro_torch.serve.service import (AsyncServiceClient, ServiceClient, ServiceConfig,
+                                           SessionService)
+
+    primary, secondary = SESSION_SLOTS
+    kw = dict(num_pri=16, num_sec=STREAM_X, chunk_size=CHUNK, primary_slots=primary,
+              secondary_slots=secondary, aot_buckets=SESSION_AOT, telemetry_cap=None)
+    hspec = histo.make_spec(512, 1 << 20, 16)
+    horacle = lambda k: histo.oracle(k, 512, 1 << 20, 16)
+    rng = np.random.default_rng(SEED + 13)
+    t_phase = time.perf_counter()
+    weights = 1 + np.arange(SERVICE_TENANTS) % 3
+    lengths = [int(SERVICE_TUPLES * w / weights.sum()) - int(rng.integers(0, CHUNK))
+               for w in weights]
+    streams = [device_zipf_tuples(n, 1 << 20, SESSION_ALPHAS[t % len(SESSION_ALPHAS)],
+                                  SEED + 1300 + t, dev) for t, n in enumerate(lengths)]
+    scripts = [tenant_ops(n, rng) for n in lengths]
+    data_s = time.perf_counter() - t_phase
+    total = sum(lengths)
+    acked = [0] * SERVICE_TENANTS           # tuples acknowledged, by tenant
+    want = [horacle(np.zeros(0, np.int64)) for _ in lengths]
+    sids = [None] * SERVICE_TENANTS
+    faults, tally = [], Tally()
+    (REPO / "build").mkdir(exist_ok=True)
+    ddir = Path(tempfile.mkdtemp(prefix="phase13_", dir=REPO / "build"))
+    rate = dict(rate_limit=SERVICE_RATE[0], rate_burst=SERVICE_RATE[1])
+
+    def url(svc, path):
+        host, port = svc.scrape_address
+        try:
+            with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=60) as r:
+                return r.status, r.read().decode("utf-8")
+        except urllib.error.HTTPError as e:  # 503: lost a mutation race, retry
+            return e.code, e.read().decode("utf-8")
+
+    def scrape_live(svc):
+        """/healthz must answer 200; /statusz parses when the sidecar did
+        not lose its read to a mutating worker (a documented 503)."""
+        health.append(url(svc, "/healthz")[0])
+        code, body = url(svc, "/statusz")
+        statusz[code] = statusz.get(code, 0) + 1
+        if code == 200:
+            assert "service" in json.loads(body)
+
+    def start(eng):
+        audit_slots(eng, faults)
+        svc = SessionService(eng, ServiceConfig(admission="scored", scrape_port=0, **rate))
+        busy = [0.0]
+        run = svc._run_batch
+
+        def timed(batch):                 # the worker's busy time
+            t0 = time.perf_counter()
+            try:
+                return run(batch)
+            finally:
+                busy[0] += time.perf_counter() - t0
+        svc._run_batch = timed
+        svc.start()
+        return svc, busy
+
+    def on_answer(t, op, got, stats=None):
+        assert np.array_equal(got, want[t]), f"tenant {t}: {op} differs from the oracle"
+        if stats is not None:
+            assert stats["tuples_appended"] == acked[t], (t, stats, acked[t])
+
+    def on_append(t, d):
+        acked[t] += len(d)
+        want[t] = want[t] + horacle(d[:, 0])
+
+    # ---- the sync clients: one connection a thread, tenants in turn
+    def sync_call(conn, op, fn):
+        while True:
+            epoch, addr = gate.enter()
+            wait = 0.0
+            try:
+                if conn.get("epoch") != epoch:
+                    if conn.get("c") is not None:
+                        conn["c"].close_conn()
+                    conn["c"], conn["epoch"] = ServiceClient(*addr, timeout=600), epoch
+                t0 = time.perf_counter()
+                try:
+                    res = fn(conn["c"])
+                except RateLimitedError as e:
+                    tally.add(op, "ERR_RATELIMIT")
+                    wait = e.retry_after_ms
+                except BackpressureError as e:        # a parked open at stop()
+                    tally.add(op, "ERR_BACKPRESSURE")
+                    wait, conn["epoch"] = e.retry_after_ms, None
+                else:
+                    tally.add(op, "OK", 1e3 * (time.perf_counter() - t0))
+                    return res
+            finally:
+                gate.exit()
+            time.sleep(wait / 1e3)
+
+    def sync_tenant(conn, t):
+        sids[t] = sync_call(conn, "open", lambda c: c.open(f"tenant{t}"))
+        for op in scripts[t]:
+            if op[0] == "append":
+                d = streams[t][op[1]:op[1] + op[2]]
+                sync_call(conn, "append", lambda c: c.append(sids[t], d))
+                on_append(t, d)
+            elif op[0] == "query":
+                on_answer(t, "query", sync_call(conn, "query",
+                                                lambda c: c.query(sids[t], scope=op[1])))
+            else:
+                merged, stats = sync_call(conn, "close", lambda c: c.close(sids[t]))
+                on_answer(t, "close", merged, stats)
+
+    def sync_worker(k, errors):
+        conn = {}
+        try:
+            for t in range(k, SERVICE_TENANTS - SERVICE_ASYNC_TENANTS, SERVICE_THREADS):
+                sync_tenant(conn, t)
+        except Exception as e:               # reported by the phase
+            errors.append((f"sync {k}", repr(e)))
+        finally:
+            if conn.get("c") is not None:
+                conn["c"].close_conn()
+
+    # ---- the async client: one connection, its tenants at once, appends
+    # pipelined in groups of up to 12 (beyond the burst: rate limits)
+    async def async_main(errors):
+        conn, lock = {}, asyncio.Lock()
+
+        async def call(op, fn):
+            while True:
+                while (tok := gate.enter(block=False)) is None:
+                    await asyncio.sleep(0.002)
+                epoch, addr = tok
+                wait = 0.0
+                try:
+                    async with lock:
+                        if conn.get("epoch") != epoch:
+                            if conn.get("c") is not None:
+                                await conn["c"].aclose()
+                            conn["c"] = await AsyncServiceClient.connect(*addr)
+                            conn["epoch"] = epoch
+                    t0 = time.perf_counter()
+                    try:
+                        res = await fn(conn["c"])
+                    except RateLimitedError as e:
+                        tally.add(op, "ERR_RATELIMIT")
+                        wait = e.retry_after_ms
+                    except BackpressureError as e:
+                        tally.add(op, "ERR_BACKPRESSURE")
+                        wait = e.retry_after_ms
+                    else:
+                        tally.add(op, "OK", 1e3 * (time.perf_counter() - t0))
+                        return res
+                finally:
+                    gate.exit()
+                await asyncio.sleep(wait / 1e3)
+
+        async def tenant(t, trng):
+            sids[t] = await call("open", lambda c: c.open(f"tenant{t}"))
+            ops, i = scripts[t], 0
+            while i < len(ops):
+                if ops[i][0] == "append":
+                    j, size = i, int(trng.integers(1, 13))
+                    while j < len(ops) and ops[j][0] == "append" and j - i < size:
+                        j += 1
+                    group = [streams[t][o[1]:o[1] + o[2]] for o in ops[i:j]]
+
+                    async def one(d):
+                        await call("append", lambda c: c.append(sids[t], d))
+                        on_append(t, d)
+                    await asyncio.gather(*(one(d) for d in group))
+                    i = j
+                    continue
+                if ops[i][0] == "query":
+                    scope = ops[i][1]
+                    on_answer(t, "query", await call("query",
+                                                     lambda c: c.query(sids[t], scope=scope)))
+                else:
+                    on_answer(t, "close", await call("close", lambda c: c.close(sids[t])))
+                i += 1
+
+        try:
+            first = SERVICE_TENANTS - SERVICE_ASYNC_TENANTS
+            await asyncio.gather(*(tenant(t, np.random.default_rng(SEED + t))
+                                   for t in range(first, SERVICE_TENANTS)))
+        except Exception as e:               # reported by the phase
+            errors.append(("async", repr(e)))
+        finally:
+            if conn.get("c") is not None:
+                await conn["c"].aclose()
+
+    with obs_lib.region("phase13") as region:
+        obs = obs_lib.Observability()
+        eng = DurableSessionEngine(hspec, directory=ddir, checkpoint_every=4, keep=3,
+                                   wal_sync=False, device=dev, obs=obs, **kw)
+        eng.warmup(dtype=np.int32, feat_shape=(2,))
+        snap = compilemon.snapshot()
+        svc, busy = start(eng)
+        gate = Gate(svc.address)
+        errors, health, statusz = [], [], {}
+        torch.cuda.synchronize()
+        reset_counts()                        # ---- the main path from here
+        t_serve = time.perf_counter()
+        # daemons: a failed check must not leave the process waiting on them
+        threads = [threading.Thread(target=sync_worker, args=(k, errors), name=f"client-{k}",
+                                    daemon=True) for k in range(SERVICE_THREADS)]
+        threads.append(threading.Thread(target=lambda: asyncio.run(async_main(errors)),
+                                        name="client-async", daemon=True))
+        for th in threads:
+            th.start()
+        # serve until two thirds of the tuples are acknowledged
+        while sum(acked) < 2 * total // 3 and not errors and any(th.is_alive() for th in threads):
+            scrape_live(svc)
+            time.sleep(0.25)
+        assert not errors, errors
+        gate.close()
+        t0 = time.perf_counter()
+        while not (gate.in_flight == svc.status()["service"]["held_opens"]
+                   and svc.status()["service"]["request_queue"] == 0):
+            assert time.perf_counter() - t0 < 120, "clients did not pause"
+            time.sleep(0.005)
+        serve1_s = time.perf_counter() - t_serve
+        parked = gate.in_flight
+        torch.cuda.synchronize()
+        counts1 = pe_counts()                 # ---- to here (first window)
+        steps1 = lane_steps(eng)
+        assert counts1 == {"route_accumulate": steps1, "cms_update": 0}, (counts1, steps1)
+        assert compilemon.since(snap).n_compiles == 0, "a build event after warmup()"
+        metrics1 = url(svc, "/metrics")[1]
+        assert service_counts(metrics1) == tally.snapshot(), \
+            (service_counts(metrics1), tally.snapshot())
+        rows1 = list(eng._telemetry)
+        busy1 = busy[0]
+        svc.stop()                            # parked opens: ERR_BACKPRESSURE
+        t0 = time.perf_counter()
+        while gate.in_flight:
+            assert time.perf_counter() - t0 < 60, "a parked open was not answered"
+            time.sleep(0.005)
+        eng._mgr.wait()                       # the async checkpoint in flight reaches disk
+        crashed, eng = eng, None              # dropped without shutdown or drain
+        want_acked = list(acked)
+        t0 = time.perf_counter()
+        reng = SessionEngine.recover(hspec, ddir, device=dev, obs=obs)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        info = reng.recovery_info
+        assert info["replay_anomalies"] == 0, info
+        for t, sid in enumerate(sids):
+            if sid is not None and not reng.sessions[sid].closed:
+                s = reng.sessions[sid]
+                assert s.backlog_tuples + s.stats.tuples_flushed == want_acked[t], \
+                    f"tenant {t}: {s.backlog_tuples} + {s.stats.tuples_flushed} != {want_acked[t]}"
+        t0 = time.perf_counter()
+        reng.warmup(dtype=np.int32, feat_shape=(2,))
+        warmup2_s = time.perf_counter() - t0
+        snap, n0 = compilemon.snapshot(), len(reng._telemetry)
+        svc, busy = start(reng)
+        torch.cuda.synchronize()
+        reset_counts()                        # ---- the main path again
+        t_serve = time.perf_counter()
+        gate.reopen(svc.address)
+        traced = None
+        while any(th.is_alive() for th in threads):
+            scrape_live(svc)
+            if traced is None:                # one traced request, its echo
+                with ServiceClient(*svc.address, timeout=600) as c:
+                    rmeta, _ = c.request({"op": "ping"})
+                    traced = c.last_trace["trace_id"]
+                    assert rmeta["trace"]["trace_id"] == traced, rmeta
+            for th in threads:
+                th.join(timeout=0.25)
+        serve2_s = time.perf_counter() - t_serve
+        assert not errors, errors
+        torch.cuda.synchronize()
+        counts2 = pe_counts()                 # ---- to here (second window)
+        steps2 = lane_steps(reng, n0)
+        assert counts2 == {"route_accumulate": steps2, "cms_update": 0}, (counts2, steps2)
+        assert not any(lm_counts().values()), lm_counts()
+        assert compilemon.since(snap).n_compiles == 0, "a build event after recovery"
+        roots = [e for e in obs.tracer.events()
+                 if e["name"] == "svc.request" and e["args"]["trace_id"] == traced]
+        assert len(roots) == 1 and roots[0]["args"]["op"] == "ping", roots
+        st = svc.status()
+        assert st["service"]["held_opens"] == 0 and st["engine"]["open_sessions"] == 0, st
+        assert all(reng.sessions[sid].closed for sid in sids)
+        assert acked == lengths, "a tenant's stream was not acknowledged in full"
+        assert not faults, faults
+        assert set(health) == {200} and statusz.get(200), (health, statusz)
+        metrics = url(svc, "/metrics")[1]
+        got = service_counts(metrics)
+        want_counts = tally.snapshot()
+        want_counts[("ping", "OK")] = 1
+        assert got == want_counts, (got, want_counts)
+        samples = {n: v for n, lbl, v in obs_lib.parse_prometheus(metrics) if not lbl}
+        busy2 = busy[0]
+        svc.stop()
+        rows2 = list(reng._telemetry)[n0:]
+        reng.shutdown()
+        crashed.shutdown()
+        shutil.rmtree(ddir, ignore_errors=True)
+
+        # ---- the same single-client requests over a CPU and a CUDA engine
+        twin = service_twin(dev, kw, hspec)
+    del streams
+    serve_s = serve1_s + serve2_s
+    rows = rows1 + rows2
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None
+    ops = sorted({op for op, _ in tally.counts})
+    out = {
+        "tenants": SERVICE_TENANTS, "tuples": total, "clients": SERVICE_THREADS,
+        "async_tenants": SERVICE_ASYNC_TENANTS, "data_s": data_s,
+        "serve_s": serve_s, "serve_s_before_crash": serve1_s, "serve_s_after": serve2_s,
+        "requests_per_s": {op: sum(v for (o, s), v in tally.counts.items()
+                                   if o == op and s == "OK") / serve_s for op in ops},
+        "client_ms": {op: {"n": len(tally.ms.get(op, [])), "p50": pct(tally.ms.get(op, []), 50),
+                           "p99": pct(tally.ms.get(op, []), 99)} for op in ops},
+        "append_tuples_per_s": total / serve_s,
+        "engine_flush_tuples_per_s": sum(r["tuples"] for r in rows)
+        / (1e-3 * sum(r["flush_ms"] for r in rows)),
+        "batched_chunks": steps1 + steps2,
+        "mean_batch_ops": samples["service_batch_ops_sum"] / samples["service_batch_ops_count"],
+        "worker_busy_share": (busy1 + busy2) / serve_s,
+        "rate_limited": sum(v for (o, s), v in tally.counts.items() if s == "ERR_RATELIMIT"),
+        "backpressured": sum(v for (o, s), v in tally.counts.items() if s == "ERR_BACKPRESSURE"),
+        "parked_at_crash": parked, "recover_s": recover_s, "warmup_after_recovery_s": warmup2_s,
+        "recovery": info, "launches": {"route_accumulate": steps1 + steps2, "cms_update": 0},
+        "statusz": statusz, "twin": twin, "oracle_exact": True,
+        "compilemon_phase13": dataclasses.asdict(region.inclusive),
+        "phase_s": time.perf_counter() - t_phase}
+    assert out["rate_limited"] > 0, "no client reached the rate limit"
+    return out, out["launches"]
+
+
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
 
 
@@ -2017,6 +2587,13 @@ def main() -> int:
     recs["session"]["phase_s"] = time.perf_counter() - t0
     for key in ("session", "durability", "session_dp"):
         print(key, json.dumps(recs[key]))
+    torch.cuda.empty_cache()
+
+    # ---- 13. SessionService over TCP, crashed and recovered behind a new one
+    rec, counts = service_path(dev)
+    for k, c in counts.items():
+        launches[k] += c
+    print("service", json.dumps(rec))
     torch.cuda.empty_cache()
     for k in kernels:                     # every main path's count, summed
         k["launches"] = launches[k["name"]]

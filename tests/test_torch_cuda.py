@@ -766,3 +766,135 @@ def test_no_build_event_after_warmup(cuda_device):
     assert compilemon.since(snap).n_compiles == 0
     assert cms_update.launches - before == sum(r["lane_width"] for r in eng._telemetry)
     assert eng.telemetry_record()["extra"]["totals"]["n_retraces"] == 0
+
+
+def _served_engine(dev, **kw):
+    from repro_torch.serve import SessionEngine
+    eng = SessionEngine(histo.make_spec(512, 1 << 20, 4), device=dev, **_session_kw(), **kw)
+    eng.warmup(dtype=np.int32, feat_shape=(2,))
+    return eng
+
+
+def _service_oracle(parts):
+    keys = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    return histo.oracle(keys, 512, 1 << 20, 4)
+
+
+@pytest.mark.cuda
+def test_service_over_card_engine_bit_exact(cuda_device):
+    """A service in front of a CUDA engine, over loopback: open, open_batch
+    with first appends, ragged and empty appends, queries in both scopes
+    and close, every answer bit-exact against the oracle."""
+    from repro_torch.serve.service import ServiceClient, ServiceConfig, SessionService
+    eng = _served_engine(cuda_device)
+    with SessionService(eng, ServiceConfig()) as svc, \
+            ServiceClient(*svc.address, timeout=120) as c:
+        d1, d2 = zipf_tuples(3 * 256 + 5, 1 << 20, 1.5, seed=1), zipf_tuples(17, 1 << 20, 0.0, seed=2)
+        sid = c.open("a")
+        assert c.append(sid, d1) == len(d1) and c.append(sid, d2) == len(d2)
+        assert c.append(sid, d1[:0]) == 0
+        want = _service_oracle([d1[:, 0], d2[:, 0]])
+        assert np.array_equal(c.query(sid), want)
+        assert np.array_equal(c.query(sid, scope="engine"), want)
+        firsts = [zipf_tuples(600, 1 << 20, 3.0, seed=3), None]
+        sids = c.open_batch(["b", "c"], first=firsts)
+        assert np.array_equal(c.query(sids[0]), _service_oracle([firsts[0][:, 0]]))
+        merged, stats = c.close(sid)
+        assert np.array_equal(merged, want) and stats["tuples_appended"] == len(d1) + len(d2)
+        for s in sids:
+            c.close(s)
+
+
+@pytest.mark.cuda
+def test_service_worker_runs_under_the_engine_device(cuda_device):
+    """Every engine call runs on the service's worker thread with the
+    engine's device current."""
+    import threading
+    from repro_torch.serve.service import ServiceClient, ServiceConfig, SessionService
+    eng = _served_engine(cuda_device)
+    seen = []
+    for name in ("open", "append", "query", "close"):
+        fn = getattr(eng, name)
+
+        def rec(*a, _fn=fn, **k):
+            seen.append((threading.current_thread().name, torch.cuda.current_device()))
+            return _fn(*a, **k)
+        setattr(eng, name, rec)
+    with SessionService(eng, ServiceConfig()) as svc, \
+            ServiceClient(*svc.address, timeout=120) as c:
+        sid = c.open("a")
+        c.append(sid, zipf_tuples(1000, 1 << 20, 1.0, seed=4))
+        c.query(sid)
+        c.close(sid)
+    want = eng.device.index if eng.device.index is not None else torch.cuda.current_device()
+    assert len(seen) == 4
+    assert all(t.startswith("svc-engine") and d == want for t, d in seen), seen
+
+
+@pytest.mark.cuda
+def test_service_records_no_build_after_warmup(cuda_device):
+    """With the engine warmed up before start(), 200 requests record no
+    build event and launch route_accumulate once per batched chunk step."""
+    from repro_torch.core import compilemon
+    from repro_torch.serve.service import ServiceClient, ServiceConfig, SessionService
+    compilemon.install()
+    eng = _served_engine(cuda_device)
+    snap, before = compilemon.snapshot(), route_accumulate.launches
+    rng = np.random.default_rng(5)
+    n = 0
+    with SessionService(eng, ServiceConfig()) as svc, \
+            ServiceClient(*svc.address, timeout=120) as c:
+        sids = [c.open(f"t{i}") for i in range(3)]
+        n += 3
+        while n < 197:
+            sid = int(rng.choice(sids))
+            if rng.random() < 0.6:
+                c.append(sid, zipf_tuples(int(rng.integers(0, 700)), 1 << 20, 2.0,
+                                          seed=int(rng.integers(1 << 30))))
+            else:
+                c.query(sid, scope=("session", "engine")[n % 2])
+            n += 1
+        for sid in sids:
+            c.close(sid)
+    assert compilemon.since(snap).n_compiles == 0
+    assert route_accumulate.launches - before == sum(r["lane_width"] for r in eng._telemetry)
+
+
+@pytest.mark.cuda
+def test_service_recovery_on_card_answers_as_before(cuda_device, tmp_path):
+    """A durable CUDA engine behind a service, dropped without shutdown;
+    recover(device="cuda") behind a new service answers every open session
+    as the old one did, and takes further appends."""
+    from repro_torch.serve import DurableSessionEngine, SessionEngine
+    from repro_torch.serve.service import ServiceClient, ServiceConfig, SessionService
+    spec = histo.make_spec(512, 1 << 20, 4)
+    eng = DurableSessionEngine(spec, directory=tmp_path, device=cuda_device,
+                               checkpoint_every=2, **_session_kw())
+    eng.warmup(dtype=np.int32, feat_shape=(2,))
+    parts = {}
+    with SessionService(eng, ServiceConfig()) as svc, \
+            ServiceClient(*svc.address, timeout=120) as c:
+        for i in range(3):
+            sid = c.open(f"t{i}")
+            parts[sid] = []
+            for j in range(4):
+                d = zipf_tuples(300 + 211 * j, 1 << 20, 1.0 * i, seed=10 * i + j)
+                c.append(sid, d)
+                parts[sid].append(d[:, 0])
+                if j % 2:
+                    c.query(sid)
+        before = {sid: c.query(sid) for sid in parts}
+    eng._mgr.wait()
+    rec = SessionEngine.recover(spec, tmp_path, device=cuda_device)
+    rec.warmup(dtype=np.int32, feat_shape=(2,))
+    with SessionService(rec, ServiceConfig()) as svc, \
+            ServiceClient(*svc.address, timeout=120) as c:
+        for sid, want in before.items():
+            assert np.array_equal(c.query(sid), want)
+            d = zipf_tuples(999, 1 << 20, 2.0, seed=sid)
+            c.append(sid, d)
+            parts[sid].append(d[:, 0])
+            merged, _ = c.close(sid)
+            assert np.array_equal(merged, _service_oracle(parts[sid]))
+    rec.shutdown()
+    eng.shutdown()

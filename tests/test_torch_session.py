@@ -845,9 +845,19 @@ class OracleHarness:
     """The port's engine (local or durable) against ``OracleModel``: the
     same exception class, oracle-exact answers, and after every op the slot
     table, FIFO queue, free slots and per-session backlog of the model; no
-    build event once the bucket table is warm."""
+    build event once the bucket table is warm.
 
-    def __init__(self, workdir=None):
+    With ``network=True`` the session ops (``ep()``) travel through a live
+    ``SessionService`` (``admission="fifo"``, the model's FIFO slots) over
+    two client connections that alternate request by request; the wire
+    clients re-raise the engine's exception classes.  ``net_drop`` ships
+    half an append frame on a fresh connection and hangs up, which must not
+    touch the engine; ``recover`` stops the service with the engine and puts
+    a new service in front of the recovered one.  ``flush`` and
+    ``flush_session`` stay engine calls: a blocking client returns only
+    after the service's worker has finished the batch."""
+
+    def __init__(self, workdir=None, network: bool = False):
         kw = dict(num_pri=M, num_sec=X, chunk_size=CHUNK, primary_slots=PRIMARY,
                   secondary_slots=SECONDARY, aot_buckets=AOT, device="cpu")
         self.spec = histo.make_spec(BINS, DOMAIN, M)
@@ -857,6 +867,43 @@ class OracleHarness:
                     if workdir else SessionEngine(self.spec, **kw))
         self.model = OracleModel(PRIMARY, CHUNK)
         self.n_recovers = 0
+        self.network = network
+        self.svc, self.clients, self.n_ops = None, [], 0
+        if network:
+            self._start_service()
+
+    def _start_service(self):
+        from repro_torch.serve.service import ServiceClient, ServiceConfig, SessionService
+        self.svc = SessionService(self.eng, ServiceConfig(admission="fifo"))
+        self.svc.start()
+        self.clients = [ServiceClient(*self.svc.address, timeout=60) for _ in range(2)]
+
+    def _stop_service(self):
+        for c in self.clients:
+            c.close_conn()
+        self.clients = []
+        if self.svc is not None:
+            self.svc.stop()
+            self.svc = None
+
+    def ep(self):
+        """The endpoint of a session op: the engine, or one of the two wire
+        clients in turn."""
+        if not self.network:
+            return self.eng
+        self.n_ops += 1
+        return self.clients[self.n_ops % 2]
+
+    def net_drop(self, sid: int, data: np.ndarray):
+        from repro_torch.serve.service import ServiceClient, encode_frame
+        a = np.ascontiguousarray(data)
+        frame = encode_frame({"op": "append", "sid": int(sid), "id": 1,
+                              "array": {"dtype": a.dtype.str, "shape": list(a.shape)}},
+                             a.tobytes())
+        raw = ServiceClient(*self.svc.address, timeout=60)
+        raw.send_raw(frame[:max(9, len(frame) // 2)])
+        raw.close_conn()
+        self.check()
 
     def both(self, eng_fn, model_fn):
         try:
@@ -874,13 +921,17 @@ class OracleHarness:
         return got, want
 
     def recover(self):
+        self._stop_service()
         self.eng.shutdown()
         self.eng = SessionEngine.recover(self.spec, self.workdir, device="cpu")
+        if self.network:
+            self._start_service()
         assert self.eng.recovery_info["replay_anomalies"] == 0
         self.n_recovers += 1
         self.check()
 
     def shutdown(self):
+        self._stop_service()
         if isinstance(self.eng, DurableSessionEngine):
             self.eng.shutdown()
 
@@ -912,11 +963,13 @@ except ImportError:                       # pragma: no cover
 if HAVE_HYPOTHESIS:
     class _PortStorm(RuleBasedStateMachine):
         durable = False
+        network = False
 
         def __init__(self):
             super().__init__()
             self._tmp = tempfile.TemporaryDirectory() if self.durable else None
-            self.h = OracleHarness(self._tmp.name if self._tmp else None)
+            self.h = OracleHarness(self._tmp.name if self._tmp else None,
+                                   network=self.network)
 
         def teardown(self):
             self.h.shutdown()
@@ -929,7 +982,8 @@ if HAVE_HYPOTHESIS:
 
         @rule(t=st.integers(0, 2))
         def open(self, t):
-            got, want = self.h.both(lambda: self.h.eng.open(f"t{t}"),
+            ep = self.h.ep()
+            got, want = self.h.both(lambda: ep.open(f"t{t}"),
                                     lambda: self.h.model.open(f"t{t}"))
             assert got == want
 
@@ -939,26 +993,27 @@ if HAVE_HYPOTHESIS:
             sizes = (sizes * k)[:k]
             first = [_data(seed + i, n) for i, n in enumerate(sizes)]
             tenants = [f"s{seed % 5}-{i}" for i in range(k)]
-            got, want = self.h.both(lambda: self.h.eng.open_batch(tenants, first=first),
+            ep = self.h.ep()
+            got, want = self.h.both(lambda: ep.open_batch(tenants, first=first),
                                     lambda: self.h.model.open_batch(tenants, first))
             assert got == want
 
         @rule(pick=st.integers(0, 63), seed=st.integers(0, 2**31 - 1),
               n=st.integers(0, 3 * CHUNK))
         def append(self, pick, seed, n):
-            sid, d = self._sid(pick), _data(seed, n)
-            self.h.both(lambda: self.h.eng.append(sid, d), lambda: self.h.model.append(sid, d))
+            sid, d, ep = self._sid(pick), _data(seed, n), self.h.ep()
+            self.h.both(lambda: ep.append(sid, d), lambda: self.h.model.append(sid, d))
 
         @rule(pick=st.integers(0, 63), scope=st.sampled_from(["session", "engine"]))
         def query(self, pick, scope):
-            sid = self._sid(pick)
-            self.h.both(lambda: self.h.eng.query(sid, scope=scope),
+            sid, ep = self._sid(pick), self.h.ep()
+            self.h.both(lambda: ep.query(sid, scope=scope),
                         lambda: self.h.model.query(sid, scope))
 
         @rule(pick=st.integers(0, 63))
         def close(self, pick):
-            sid = self._sid(pick)
-            self.h.both(lambda: self.h.eng.close(sid), lambda: self.h.model.close(sid))
+            sid, ep = self._sid(pick), self.h.ep()
+            self.h.both(lambda: ep.close(sid), lambda: self.h.model.close(sid))
 
         @rule()
         def flush(self):
@@ -974,6 +1029,12 @@ if HAVE_HYPOTHESIS:
         @rule()
         def recover(self):
             self.h.recover()
+
+        @precondition(lambda self: self.network)
+        @rule(pick=st.integers(0, 63), seed=st.integers(0, 2**31 - 1),
+              n=st.integers(1, 2 * CHUNK))
+        def net_drop(self, pick, seed, n):
+            self.h.net_drop(self._sid(pick), _data(seed, n))
 
     class _PortStormDurable(_PortStorm):
         durable = True
