@@ -55,8 +55,8 @@ Phases (any failure exits non-zero before the result lines):
      bit-exact against the oracle;
  11. StreamEngine at serving size (M = 16, X = 14, chunks of 4096, 8 lanes,
      every engine on the default obs bundle): HISTO with an online batch of
-     8 tenants at Zipf alpha 0-3, 2^22 - r_i tuples each (seven ragged
-     tails; 1024 batched chunks, ~32 M tuples in one flush) and a planned
+     8 tenants at Zipf alpha 0-3, 2^21 - r_i tuples each (seven ragged
+     tails; 512 batched chunks, ~16 M tuples in one flush) and a planned
      batch of 5 tenants under per-tenant static plans (3 pad lanes); HHD, 8
      tenants at alpha 3 (cms_update over lanes); HLL, 4 ragged tenants (4
      pad lanes).  Every tenant equal to its oracle and, merged and every
@@ -117,6 +117,26 @@ Phases (any failure exits non-zero before the result lines):
      coalesced batch, the worker's busy share, rate-limited and
      backpressured requests, recovery seconds and replayed tuples, the
      build monitor's delta).
+ 14. Multi-device Ditto on logical shards of the one card
+     (core.distributed.make_mesh: P shards on one device; this measures
+     the code path and the exchange, not multi-card scaling): (a)
+     run_stream with one PE a shard, 6 + 2 shards at the widths of
+     examples/distributed_ditto.py (384 bins over 2^20 keys, chunks of
+     6144, capacity 256): its 16-chunk streams at alpha 0 and 2, X = 0 and
+     2, with its claim (alpha 2: X = 0 drops over 1000 tuples after the
+     plan, X = 2 none at a lower max receive load; alpha 0 oracle-exact),
+     HLL (max) at alpha 2, X = 2 oracle-exact, each chunk identical on the
+     card and a CPU mesh, then a 2^22-tuple alpha-2 stream at X = 2, timed;
+     route_accumulate once a shard a chunk; (b) route_all_to_all on 8 card
+     shards against its numpy oracle; (c) SessionEngine(mesh=4 shards) at
+     phase 12a's shape and a local engine through one op script of ~2^22
+     tuples: answers equal to the oracle and to each other, slot tables,
+     folds and integer telemetry equal, folds across shards, no build
+     event after warmup(), the PE kernel once a shard an engine-wide step
+     and once a per-session step; HHD sessions on the mesh (cms_update
+     likewise); (d) a durable meshed engine crashed two thirds through,
+     recovered onto the mesh and onto mesh=None, both equal to (c)'s run.
+     Prints the mesh_pe and mesh_session lines.
 Then the MoE language model (moonshot-v1-16b-a3b at full width):
   A. hold onehot_dispatch, onehot_combine and flash_attention against their
      plain versions on CUDA tensors at the prefill and decode shapes:
@@ -143,10 +163,10 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      on the first layer's inputs of a decode step at 64 slots.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
-count windows of phases 3, 7, 9, 10, 11, 12 and 13: phase 11's windows are
-its four flushes, phase 12's its op script runs, phase 13's the serving
-before the crash and after the recovery), and last {"ok": true, "device":
-{...}}.
+count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14: phase 11's windows
+are its four flushes, phase 12's its op script runs, phase 13's the serving
+before the crash and after the recovery, phase 14's its streams and op
+script runs), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -179,7 +199,7 @@ SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
 LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
 LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
 STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
-STREAM_TUPLES, STREAM_SMALL = 2**22, 2**21    # a tenant of the online batch; of the others
+STREAM_TUPLES, STREAM_SMALL = 2**21, 2**21    # a tenant of the online batch; of the others
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
@@ -193,6 +213,12 @@ SERVICE_TENANTS, SERVICE_ASYNC_TENANTS, SERVICE_THREADS = 32, 8, 8   # phase 13
 SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**25, 2**19   # through the socket; 4 MB frames
 SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
 SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
+MESH_PE_SHARDS, MESH_PRI, MESH_SEC = 8, 6, 2   # phase 14 (a): examples/distributed_ditto.py
+MESH_BINS, MESH_DOMAIN, MESH_CHUNK, MESH_CHUNKS, MESH_CAP = 384, 1 << 20, 6144, 16, 256
+MESH_LONG_TUPLES = 2**22                     # (a): the alpha-2 stream at X = 2
+MESH_ROUTE = (8, 16, 4096, 600)              # (b): shards, PEs, tuples a shard, capacity
+MESH_LANE_SHARDS, MESH_SESSION_TUPLES = 4, 2**22     # (c), (d)
+MESH_HHD_TENANTS, MESH_HHD_TUPLES = 4, 2**18         # (c): HHD on the meshed engine
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -672,7 +698,7 @@ def _tree_equal(a, b) -> bool:
 def stream_path(dev, stream_3) -> tuple[dict, dict]:
     """Phase 11: StreamEngine at serving size, every engine on the default
     obs bundle.  HISTO (512 bins, domain 2^20): an online batch of 8
-    tenants at Zipf alpha STREAM_ALPHAS, 2^22 - r_i tuples each (r_0 = 0,
+    tenants at Zipf alpha STREAM_ALPHAS, 2^21 - r_i tuples each (r_0 = 0,
     seven ragged tails), and a planned batch of 5 tenants with plans from
     make_static_plan on a 0.1% sample, 2^21 tuples each (3 pad lanes); HHD
     (depth 4, width 1024): 8 tenants at alpha 3, 2^21 each; HLL (p = 12,
@@ -977,7 +1003,8 @@ class ScriptRunner:
         self.full_check = full_check
         self.model = SlotModel(slots, CHUNK)
         self.pos = [0] * len(streams)
-        self.want = [0] * len(streams)       # the running oracle by tenant
+        # the running oracle by tenant (a tenant may query before it appends)
+        self.want = [oracle(s[:0, 0]) for s in streams]
         self.answers, self.slot_log, self.lat = {}, [], {"session": [], "engine": []}
         self.busy, self.granted, self.i, self.queued_opens = [], [], 0, 0
 
@@ -1871,6 +1898,318 @@ def service_path(dev) -> tuple[dict, dict]:
     return out, out["launches"]
 
 
+# ---------------------------------------------------------------- phase 14
+
+def mesh_launches(eng, since: int = 0) -> int:
+    """PE launches of an engine's flushes (telemetry rows from ``since``):
+    an engine-wide batched chunk step launches once a shard, a per-session
+    or admission step once (its lane group gathered onto one device)."""
+    shards = 1 if eng.mesh is None else eng.mesh.size
+    return sum(r["lane_width"] * (shards if r["scope"] == "engine" else 1)
+               for r in list(eng._telemetry)[since:])
+
+
+def route_oracle(tup, eff, num_pe, capacity, shards, fill):
+    """``route_all_to_all``'s documented result in numpy: per (destination,
+    source) shard the source's tuples for that destination in stream order,
+    the first ``capacity`` kept; and the number dropped."""
+    t_loc, per = len(tup) // shards, num_pe // shards
+    routed = np.full((shards, shards, capacity) + tup.shape[1:], fill, tup.dtype)
+    valid = np.zeros((shards, shards, capacity), bool)
+    dst = eff.astype(np.int64) // per
+    dropped = 0
+    for s in range(shards):
+        fill_to = np.zeros(shards, np.int64)
+        for i in range(s * t_loc, (s + 1) * t_loc):
+            d = dst[i]
+            if 0 <= d < shards and fill_to[d] < capacity:
+                routed[d, s, fill_to[d]], valid[d, s, fill_to[d]] = tup[i], True
+                fill_to[d] += 1
+            else:
+                dropped += 1
+    return routed, valid, dropped
+
+
+def pe_sharded_path(dev) -> tuple[dict, int]:
+    """Phase 14 (a) and (b).  (a) ``run_stream`` with one PE a shard on
+    MESH_PE_SHARDS logical shards of the card at the widths of
+    examples/distributed_ditto.py: its 16-chunk HISTO streams at alpha 0 and
+    2, X = 0 and 2, each chunk identical on the card and on a CPU mesh
+    (buffers, loads, drops, workload), the example's claim (alpha 2: X = 0
+    drops more than 1000 tuples after the plan, X = 2 none at a lower max
+    receive load; alpha 0 oracle-exact); HLL (p = 12, max) at alpha 2, X = 2,
+    oracle-exact, its chunks against the CPU; then a MESH_LONG_TUPLES alpha-2
+    HISTO stream at X = 2, timed, oracle-exact when nothing dropped.  Every
+    run launches route_accumulate once a shard a chunk.  (b)
+    ``route_all_to_all`` on MESH_ROUTE's 8 card shards against its numpy
+    oracle, timed.  Returns the record and the PE launches of (a)."""
+    from repro_torch.apps import histo, hll
+    from repro_torch.core import distributed as D
+    from repro_torch.core.router import route_all_to_all
+    from repro_torch.data.zipf import zipf_tuples
+
+    mesh = D.make_mesh(MESH_PE_SHARDS, "pe", device=dev)
+    cpu_mesh = D.make_mesh(MESH_PE_SHARDS, "pe", device="cpu")
+    spec = histo.make_spec(MESH_BINS, MESH_DOMAIN, MESH_PRI)
+    horacle = lambda k: histo.oracle(k, MESH_BINS, MESH_DOMAIN, MESH_PRI)
+    launches, runs = 0, {}
+
+    def traced(spec_, m, data, sec):
+        per = []
+
+        def keep(c, buffers, load, dropped, workload):
+            per.append([torch.cat([b.cpu() for b in buffers]), load.cpu(), dropped.cpu(),
+                        workload.cpu()])
+
+        merged, stats = D.run_stream(spec_, m, data, MESH_PRI, sec, capacity=MESH_CAP,
+                                     on_chunk=keep)
+        return merged.cpu(), stats, per
+
+    def card_and_cpu(name, spec_, data, sec):
+        nonlocal launches
+        torch.cuda.synchronize()
+        reset_counts()
+        merged, stats, per = traced(spec_, mesh, data, sec)
+        torch.cuda.synchronize()
+        counts = pe_counts()
+        want = {"route_accumulate": MESH_PE_SHARDS * len(data), "cms_update": 0}
+        assert counts == want, f"{name}: {counts}, expected {want}"
+        launches += counts["route_accumulate"]
+        cmerged, cstats, cper = traced(spec_, cpu_mesh, data, sec)
+        for c, (a, b) in enumerate(zip(per, cper)):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), f"{name}: chunk {c} card != CPU"
+        assert torch.equal(merged, cmerged) and stats["loads"] == cstats["loads"], name
+        return merged, stats
+
+    for alpha in (0.0, 2.0):
+        data = zipf_tuples(MESH_CHUNK * MESH_CHUNKS, MESH_DOMAIN, alpha,
+                           seed=SEED).reshape(MESH_CHUNKS, MESH_CHUNK, 2)
+        for sec in (0, MESH_SEC):
+            merged, stats = card_and_cpu(f"histo a{alpha} X{sec}", spec, data, sec)
+            exact = stats["dropped"] == 0 and np.array_equal(
+                merged.numpy(), horacle(data.reshape(-1, 2)[:, 0]))
+            runs[f"histo_a{alpha:g}_x{sec}"] = {
+                k: stats[k] for k in ("max_load", "max_load_postplan", "dropped",
+                                      "dropped_postplan")} | {"oracle_exact": exact}
+    a0 = [runs[f"histo_a0_x{x}"] for x in (0, MESH_SEC)]
+    a2x0, a2x2 = runs["histo_a2_x0"], runs[f"histo_a2_x{MESH_SEC}"]
+    assert all(r["oracle_exact"] for r in a0), a0
+    assert a2x0["dropped_postplan"] > 1000 and a2x2["dropped_postplan"] == 0, runs
+    assert a2x2["max_load_postplan"] < a2x0["max_load_postplan"], runs
+
+    # HLL: max folds; the profiling chunk's drops repeat hot keys that
+    # later chunks carry, so the registers still equal the oracle's
+    hspec = hll.make_spec(12, MESH_PRI)
+    data = zipf_tuples(MESH_CHUNK * MESH_CHUNKS, MESH_DOMAIN, 2.0,
+                       seed=SEED).reshape(MESH_CHUNKS, MESH_CHUNK, 2)
+    merged, stats = card_and_cpu("hll a2", hspec, data, MESH_SEC)
+    assert np.array_equal(merged.numpy(), hll.oracle(data.reshape(-1, 2)[:, 0], 12, MESH_PRI)), \
+        "hll: merged registers differ from the oracle"
+    assert stats["dropped_postplan"] == 0, stats
+    runs["hll_a2_x2"] = {k: stats[k] for k in ("max_load", "max_load_postplan", "dropped",
+                                                 "dropped_postplan")} | {"oracle_exact": True}
+
+    # the long stream, timed
+    n = MESH_LONG_TUPLES // MESH_CHUNK
+    long = zipf_tuples(n * MESH_CHUNK, MESH_DOMAIN, 2.0, seed=SEED + 14).reshape(n, MESH_CHUNK, 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    merged, stats = D.run_stream(spec, mesh, long, MESH_PRI, MESH_SEC, capacity=MESH_CAP)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = pe_counts()
+    assert counts == {"route_accumulate": MESH_PE_SHARDS * n, "cms_update": 0}, counts
+    launches += counts["route_accumulate"]
+    assert stats["dropped_postplan"] == 0, stats
+    exact = None
+    if stats["dropped"] == 0:
+        exact = bool(np.array_equal(merged.cpu().numpy(), horacle(long.reshape(-1, 2)[:, 0])))
+        assert exact, "the long stream differs from the oracle"
+    rec = {"shards": MESH_PE_SHARDS, "num_pri": MESH_PRI, "num_sec": MESH_SEC,
+           "chunk": MESH_CHUNK, "capacity": MESH_CAP, "runs": runs,
+           "long": {"tuples": n * MESH_CHUNK, "chunks": n, "run_s": run_s,
+                    "ms_per_chunk": 1e3 * run_s / n, "tuples_per_s": n * MESH_CHUNK / run_s,
+                    "max_load_preplan": stats["loads"][0],
+                    "max_load_postplan": stats["max_load_postplan"],
+                    "dropped": stats["dropped"], "dropped_postplan": stats["dropped_postplan"],
+                    "assignment": stats["assignment"].tolist(), "oracle_exact": exact}}
+
+    # (b) route_all_to_all on card shards against its oracle
+    shards, num_pe, t_loc, cap = MESH_ROUTE
+    rng = np.random.default_rng(SEED + 140)
+    tup = rng.integers(-2**31, 2**31 - 1, size=(shards * t_loc, 2), dtype=np.int64).astype(np.int32)
+    eff = np.minimum(rng.zipf(1.3, size=shards * t_loc) - 1, num_pe).astype(np.int32)
+    rmesh = D.make_mesh(shards, "model", device=dev)
+    args = (torch.as_tensor(tup, device=dev), torch.as_tensor(eff, device=dev), num_pe, cap,
+            rmesh)
+    routed, valid = route_all_to_all(*args, fill_value=-1)
+    want_r, want_v, dropped = route_oracle(tup, eff, num_pe, cap, shards, -1)
+    for d in range(shards):
+        assert np.array_equal(routed[d].cpu().numpy(), want_r[d]) and \
+            np.array_equal(valid[d].cpu().numpy(), want_v[d]), f"route_all_to_all shard {d}"
+    assert len(tup) - sum(int(v.sum()) for v in valid) == dropped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        route_all_to_all(*args, fill_value=-1)
+    torch.cuda.synchronize()
+    rec["route_all_to_all"] = {"shards": shards, "num_pe": num_pe, "tuples": len(tup),
+                               "capacity": cap, "dropped": dropped, "oracle_exact": True,
+                               "ms_per_call": 1e3 * (time.perf_counter() - t0) / 20}
+    return rec, launches
+
+
+def mesh_session_path(dev) -> tuple[dict, int]:
+    """Phase 14 (c) and (d).  (c) ``SessionEngine(mesh=make_mesh(
+    MESH_LANE_SHARDS, "lanes"))`` at phase 12a's shape (HISTO, 8 + 8 lanes,
+    4 a shard, aot_buckets=8) and a local engine on the card, through one
+    seeded op script of ~MESH_SESSION_TUPLES tuples: every answer against
+    the oracle and equal across the two, slot tables, grants, folds and the
+    integer telemetry equal, some fold across shards, no build event after
+    warmup(), route_accumulate once a shard an engine-wide step and once a
+    per-session or admission step; then HHD on a meshed engine (cms_update
+    likewise).  (d) the same ops on a durable meshed engine dropped two
+    thirds through, recovered onto the mesh and onto mesh=None: each equal
+    to (c)'s run at the crash and to the end.  Returns the record and the PE
+    launches of every op script's run."""
+    import copy
+    import shutil
+
+    from repro_torch import obs as obs_lib
+    from repro_torch.apps import hhd, histo
+    from repro_torch.core import compilemon
+    from repro_torch.core import distributed as D
+    from repro_torch.data.zipf import zipf_tuples
+    from repro_torch.serve import DurableSessionEngine, SessionEngine
+
+    rng = np.random.default_rng(SEED + 14)
+    launches = {"route_accumulate": 0, "cms_update": 0}
+    primary, secondary = SESSION_SLOTS
+    kw = dict(num_pri=16, num_sec=STREAM_X, chunk_size=CHUNK, primary_slots=primary,
+              secondary_slots=secondary, aot_buckets=SESSION_AOT, telemetry_cap=None)
+    hspec = histo.make_spec(512, 1 << 20, 16)
+    horacle = lambda k: histo.oracle(k, 512, 1 << 20, 16)
+    mesh = D.make_mesh(MESH_LANE_SHARDS, "lanes", device=dev)
+    weights = 1 + np.arange(SESSION_TENANTS) % 3
+    lengths = [int(MESH_SESSION_TUPLES * w / weights.sum()) - int(rng.integers(0, CHUNK))
+               for w in weights]
+    streams = [zipf_tuples(n, 1 << 20, SESSION_ALPHAS[t % len(SESSION_ALPHAS)],
+                           seed=SEED + 800 + t) for t, n in enumerate(lengths)]
+    ops = session_script(lengths, rng, storm=primary, wave_a=primary, slots=primary)
+    crash_at = next(i for i, op in enumerate(ops) if op[0] == "query_all")
+
+    def counted(eng, drv, kernel, **run_kw):
+        """Run the script on ``eng``: its launches checked and summed."""
+        n0 = len(eng._telemetry)
+        snap = compilemon.snapshot()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        drv.run(eng, **run_kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = pe_counts()
+        want = {"route_accumulate": 0, "cms_update": 0, kernel: mesh_launches(eng, n0)}
+        assert counts == want, f"launches {counts}, expected {want}"
+        assert compilemon.since(snap).n_compiles == 0, "a build event after warmup()"
+        for k, c in counts.items():
+            launches[k] += c
+        return run_s
+
+    out, drvs, folds = {}, {}, []
+    for name, m in (("mesh", mesh), ("local", None)):
+        eng = SessionEngine(hspec, device=dev, mesh=m, obs=obs_lib.Observability(), **kw)
+        aot = eng.warmup(dtype=np.int32, feat_shape=(2,))
+        if m is not None:
+            fold = eng._fold_lane
+
+            def spy(states, src, dst, fold=fold, shard=eng._lanes.lane_sharding):
+                folds.append((shard[src], shard[dst]))
+                return fold(states, src, dst)
+
+            eng._fold_lane = spy
+        drv = ScriptRunner(ops, streams, horacle, primary)
+        run_s = counted(eng, drv, "route_accumulate", mark=crash_at)
+        assert drv.i == len(ops) and drv.queued_opens == primary
+        out[name] = session_summary(eng, drv, run_s) | {
+            "aot_warmup_ms": aot["warmup_ms"], "launches": mesh_launches(eng),
+            "lanes_per_device": eng.lanes_per_device,
+            "mesh_devices": eng.telemetry_record()["extra"]["config"]["mesh_devices"]}
+        drvs[name] = (drv, eng.slot_reschedules, int_rows(eng))
+        del eng
+    (mdrv, mfolds, mrows), (ldrv, lfolds, lrows) = drvs["mesh"], drvs["local"]
+    for i, want in ldrv.answers.items():
+        got = mdrv.answers[i]
+        assert (got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in got)) \
+            if isinstance(want, dict) else np.array_equal(got, want), f"mesh op {i}"
+    assert mdrv.slot_log == ldrv.slot_log and mfolds == lfolds and mrows == lrows, \
+        "meshed and local engines differ in slot tables, folds or telemetry"
+    cross = sum(a != b for a, b in folds)
+    assert cross > 0, "no fold crossed shards"
+    out.update({"tenants": len(lengths), "ops": len(ops), "folds": len(folds),
+                "cross_shard_folds": cross, "answers_equal_local": True})
+
+    # HHD on the meshed engine: cms_update once a shard an engine-wide step
+    cspec = hhd.make_spec(4, 1024, 16)
+    clen = [MESH_HHD_TUPLES * (1 + t % 2) - int(rng.integers(0, CHUNK))
+            for t in range(MESH_HHD_TENANTS)]
+    cstreams = [zipf_tuples(n, 1 << 20, 3.0, seed=SEED + 900 + t) for t, n in enumerate(clen)]
+    cops = session_script(clen, rng, storm=MESH_HHD_TENANTS, wave_a=0, slots=primary)
+    ceng = SessionEngine(cspec, device=dev, mesh=mesh, obs=False, **kw)
+    ceng.warmup(dtype=np.int32, feat_shape=(2,))
+    cdrv = ScriptRunner(cops, cstreams, lambda k: hhd.oracle(k, 4, 1024, 16), primary)
+    run_s = counted(ceng, cdrv, "cms_update")
+    out["hhd"] = {"tenants": MESH_HHD_TENANTS, "run_s": run_s, "oracle_exact": True,
+                  "launches": mesh_launches(ceng), "grants_max": max(cdrv.granted, default=0)}
+    del ceng, cdrv, cstreams
+
+    # (d) durable and meshed, crashed two thirds through, recovered twice
+    ddir = REPO / "build" / "phase14_durable"
+    ldir = REPO / "build" / "phase14_durable_local"
+    for d in (ddir, ldir):
+        shutil.rmtree(d, ignore_errors=True)
+    bobs = obs_lib.Observability()
+    deng = DurableSessionEngine(hspec, directory=ddir, checkpoint_every=4, keep=3,
+                                wal_sync=False, device=dev, mesh=mesh, obs=bobs, **kw)
+    deng.warmup(dtype=np.int32, feat_shape=(2,))
+    ddrv = ScriptRunner(ops, streams, horacle, primary, full_check=False)
+    pre_s = counted(deng, ddrv, "route_accumulate", stop=crash_at)
+    deng._mgr.wait()
+    crashed = deng
+    records = sum(v for n, _, v in obs_lib.parse_prometheus(bobs.registry.prometheus_text())
+                  if n == "wal_records_total")
+    shutil.copytree(ddir, ldir)
+    durable = {"ops_before_crash": crash_at, "run_s_before_crash": pre_s,
+               "records_logged_before_crash": records}
+    for target, d, m in (("mesh", ddir, mesh), ("local", ldir, None)):
+        drv = copy.deepcopy(ddrv)
+        t0 = time.perf_counter()
+        reng = SessionEngine.recover(hspec, d, mesh=m, device=dev,
+                                     obs=obs_lib.Observability())
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        info = reng.recovery_info
+        assert info["checkpoint_step"] is not None, info
+        assert info["replayed_records"] < records and info["replay_anomalies"] == 0, info
+        assert engine_state(reng) == mdrv.marked, f"recovered onto {target}: differs at the crash"
+        post_s = counted(reng, drv, "route_accumulate")
+        for i, want in mdrv.answers.items():
+            got = drv.answers[i]
+            assert (got.keys() == want.keys() and all(np.array_equal(got[k], want[k])
+                                                      for k in got)) \
+                if isinstance(want, dict) else np.array_equal(got, want), \
+                f"recovered onto {target}: op {i}"
+        durable[target] = {"recover_s": recover_s, "recovery": info, "run_s_after": post_s,
+                           "answers_equal_uninterrupted": True}
+        reng.shutdown()
+    crashed.shutdown()
+    for d in (ddir, ldir):
+        shutil.rmtree(d, ignore_errors=True)
+    out["durable"] = durable
+    return out, launches
+
+
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
 
 
@@ -2594,6 +2933,20 @@ def main() -> int:
     for k, c in counts.items():
         launches[k] += c
     print("service", json.dumps(rec))
+    torch.cuda.empty_cache()
+
+    # ---- 14. multi-device Ditto on logical shards of the card
+    t0 = time.perf_counter()
+    rec, n = pe_sharded_path(dev)
+    launches["route_accumulate"] += n
+    rec["phase_s"] = time.perf_counter() - t0
+    print("mesh_pe", json.dumps(rec))
+    t0 = time.perf_counter()
+    rec, counts = mesh_session_path(dev)
+    for k, c in counts.items():
+        launches[k] += c
+    rec["phase_s"] = time.perf_counter() - t0
+    print("mesh_session", json.dumps(rec))
     torch.cuda.empty_cache()
     for k in kernels:                     # every main path's count, summed
         k["launches"] = launches[k["name"]]

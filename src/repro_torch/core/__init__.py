@@ -1,9 +1,14 @@
 """Ditto core in PyTorch: types, mapper, profiler, scheduler, merger,
 perfmodel, executor, analyzer, the framework front-end, the replicated
-static-dispatch baseline and the router's reference functions."""
+static-dispatch baseline, the router, and the multi-device layer (a mesh
+of devices, the PE-sharded routed executor, the lane-sharded executor)."""
 from repro_torch.core.baseline import (make_replicated_executor,
                                        replica_buffer_bytes,
                                        routed_buffer_bytes)
+from repro_torch.core.distributed import (Mesh, ShardedLaneExecutor,
+                                          make_distributed_executor,
+                                          make_lane_sharded_executor, make_mesh,
+                                          run_stream)
 from repro_torch.core.executor import (ExecState, ResumableExecutor,
                                        init_state, make_executor,
                                        make_multistream_executor,
@@ -12,7 +17,7 @@ from repro_torch.core.executor import (ExecState, ResumableExecutor,
                                        stack_plans, stack_states, take_lanes,
                                        with_plan)
 from repro_torch.core.framework import Ditto, GeneratedImpl, tune_pe_counts
-from repro_torch.core.router import decode_filter, route_dense
+from repro_torch.core.router import decode_filter, route_all_to_all, route_dense
 from repro_torch.core.types import (PROFILE_MODE, RUN_MODE, DittoSpec,
                                     ExecStats, RoutePlan)
 
@@ -24,5 +29,7 @@ __all__ = [
     "make_multistream_executor", "stack_plans", "stack_states", "take_lanes",
     "put_lanes",
     "make_replicated_executor", "replica_buffer_bytes", "routed_buffer_bytes",
-    "decode_filter", "route_dense",
+    "decode_filter", "route_dense", "route_all_to_all",
+    "Mesh", "make_mesh", "make_distributed_executor", "run_stream",
+    "ShardedLaneExecutor", "make_lane_sharded_executor",
 ]

@@ -319,10 +319,12 @@ class ResumableExecutor:
         chunks: [L, num_chunks, chunk_size, ...]; mask: optional
         bool[L, num_chunks, chunk_size].  Returns (states, ExecStats with
         leaves [L, num_chunks, ...]), lane l equal to ``run_chunks`` of
-        lane l alone; the caller's state stays as it was."""
-        chunks = torch.as_tensor(chunks, device=self.device)
+        lane l alone; the caller's state stays as it was.  The chunks go to
+        the device of ``states`` (a mesh shard's, ``core.distributed``)."""
+        device = states.mode.device
+        chunks = torch.as_tensor(chunks, device=device)
         if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
+            mask = torch.as_tensor(mask, device=device)
         lanes = states.mode.shape
         if len(lanes) != 1 or chunks.dim() < 3 or chunks.shape[0] != lanes[0] \
                 or chunks.shape[2] != self.chunk_size:

@@ -12,12 +12,15 @@ The counterpart of ``repro/serve/durability.py``, with its on-disk formats:
               per tenant named ``slug-sha1[:8].wal``, watermark (``wm``)
               records in every file, torn tails truncated on reopen.
   checkpoint  periodically every lane of the lanes-stacked ``ExecState`` is
-              taken to the host (``executor.take_lanes``) and saved through
+              gathered from the engine's shards, taken to the host and
+              saved through
               ``checkpoint.CheckpointManager`` (async, atomic, keep-k) with
               the scheduler metadata (slot map, grants, queue, backlogs,
               stats) and the WAL seq it covers (the flush watermark).  The
-              layout is the JAX package's, so either package restores the
-              other's checkpoints.
+              layout is the JAX package's and knows no mesh: either
+              package restores the other's checkpoints, and a local
+              engine's restore onto a meshed one and back (the lanes are
+              split over the shards on restore).
 
 Recovery (``recover``) restores the newest readable checkpoint and replays
 only the WAL tail past its watermark.
@@ -429,14 +432,14 @@ class DurableSessionEngine(SessionEngine):
     # ------------------------------------------------------------ checkpoint
     def checkpoint(self, block: bool = False) -> int:
         """Persist a consistent cut of the engine: every lane of the
-        lanes-stacked ``ExecState`` (``take_lanes``, copied to the host
-        before this returns), the scheduler and session metadata, and the
+        lanes-stacked ``ExecState`` (gathered from the shards, copied to the
+        host before this returns), the scheduler and session metadata, and the
         WAL seq it covers.  The write runs async unless ``block``.  Every
         checkpoint then drops the WAL records the oldest kept one covers."""
         t0 = time.perf_counter()
         with self.obs.span("ckpt.save", cat="ckpt", block=bool(block)) as sp:
             upto = self._wal.seq - 1    # every record logged so far
-            lanes = core_executor.take_lanes(self._states, list(range(self.num_lanes)))
+            lanes = self._lanes.gather_states(self._states)
             step = self._ckpt_step
             self._ckpt_step += 1
             meta = self._capture_meta(upto, step)
@@ -547,7 +550,7 @@ class DurableSessionEngine(SessionEngine):
                     self._restore_meta(meta)
                     wal_seq = int(meta["wal_seq"])
                     ck_step = int(meta["step"])
-                    self._states = ck["lanes"]
+                    self._states = self._lanes.shard_states(ck["lanes"])
             if self._aot_widths and self._dtype is not None:
                 # land in the same buckets before the tail replays
                 with self.obs.span("recover.warmup", cat="recover"):
@@ -644,7 +647,9 @@ def recover(spec, directory: os.PathLike, *, mesh=None, device="cuda", guard=Non
     ``config.json`` (``overrides`` win over saved knobs; ``spec`` must be
     the application the directory served; a ``kernel_backend`` that the
     JAX package wrote is ignored), restore the newest readable checkpoint
-    onto ``device`` and replay the WAL tail past its watermark."""
+    onto the shards of ``mesh`` (a ``core.distributed.Mesh`` with a
+    ``lanes`` axis, whatever mesh wrote the directory) or, without one,
+    onto ``device``, and replay the WAL tail past its watermark."""
     directory = Path(directory)
     cfg = json.loads((directory / _CONFIG_NAME).read_text())
     if cfg.get("app") not in (None, spec.name):

@@ -9,12 +9,17 @@ tuple batches as they arrive, ``query()`` a merged snapshot mid-stream and
 sessions are the new tuples, stream slots are the new PEs.
 
 Slot model
-  The engine owns ``primary_slots + secondary_slots`` lanes of one
+  The engine owns ``primary_slots + secondary_slots`` lanes of a
   lanes-stacked ``ExecState`` (``core.executor.stack_states``), advanced
   by ``ResumableExecutor.scan_lanes``: each batched chunk is one chunk
   step for every lane, whose PE update is one kernel launch for all lanes
-  on the card.  Every admitted session owns one primary lane; secondary
-  lanes are the serving layer's SecPEs.  At each engine-wide flush the
+  of a shard on the card.  Every lane operation goes through
+  ``core.distributed.ShardedLaneExecutor``: ``mesh=`` splits the lanes
+  over the mesh's ``lanes`` axis (P shards x ``lanes_per_device`` lanes,
+  so one engine serves more tenants than one shard's lane budget), and
+  ``mesh=None`` is the same path on a mesh of one shard on ``device``.
+  Every admitted session owns one primary lane; secondary lanes are the
+  serving layer's SecPEs.  At each engine-wide flush the
   paper's greedy scheduler (``core.scheduler.schedule_secpes``) runs over
   the per-session chunk backlog, on a small host tensor, and grants hot
   sessions extra lanes; a session's chunks then stripe round-robin over
@@ -60,8 +65,7 @@ Telemetry and observability
 
 Durability: ``serve.durability`` wraps this engine in a per-tenant
 write-ahead log and lane-state checkpoints; ``SessionEngine.recover``
-resumes one.  ``mesh=`` (lane sharding over devices) waits for ROADMAP
-queue 1's multi-device item and raises.
+resumes one, onto a mesh or not, whatever the mesh that wrote it.
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ import torch
 
 from repro_torch import obs as obs_lib
 from repro_torch.core import compilemon, scheduler
+from repro_torch.core import distributed as core_distributed
 from repro_torch.core import executor as core_executor
 from repro_torch.data.pipeline import pad_tail_chunk
 from repro_torch.serve.errors import (ClosedSessionError, QueuedSessionError,
@@ -211,8 +216,11 @@ class SessionEngine:
         (``spec.merge is None``).
       min_grant_chunks: backlog chunks below which a session gets no
         secondary lane.
-      mesh / lanes_axis: lane sharding over devices; ``mesh`` other than
-        None raises NotImplementedError (ROADMAP queue 1, multi-device).
+      mesh / lanes_axis: a ``core.distributed.Mesh`` with a ``lanes_axis``
+        axis splits the lanes over its shards (``lanes_per_device`` each;
+        ``primary_slots + secondary_slots`` must divide evenly).  Its
+        devices must be of ``device``'s type.  ``None`` keeps every lane
+        on ``device``.
       aot_buckets: the bucket table's largest scan width (an int, or an
         iterable of widths whose max counts), rounded up to a power of two;
         None keeps one power-of-two segment a flush.
@@ -234,11 +242,6 @@ class SessionEngine:
                  lanes_axis: str = "lanes", aot_buckets=None,
                  device="cuda", obs=None,
                  telemetry_cap: Optional[int] = 4096, **executor_kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SessionEngine(mesh=...): lane sharding over devices is not "
-                "ported yet (ROADMAP queue 1, the multi-device item: "
-                "core/distributed.py on torch.distributed)")
         if tuned is not None:
             if num_pri is not None and num_pri != tuned.num_pri:
                 raise ValueError(f"num_pri={num_pri} conflicts with the "
@@ -253,20 +256,36 @@ class SessionEngine:
             raise ValueError(
                 f"{spec.name}: non-decomposable buffers cannot be combined "
                 "across lanes; use secondary_slots=0")
+        if mesh is not None and lanes_axis not in dict(mesh.shape):
+            raise ValueError(
+                f"mesh has no '{lanes_axis}' axis; mesh axes: "
+                f"{tuple(dict(mesh.shape))}")
         self.spec = spec
         self.primary_slots = primary_slots
         self.secondary_slots = secondary_slots
         self.min_grant_chunks = min_grant_chunks
         self.num_lanes = primary_slots + secondary_slots
-        self.lanes_per_device = self.num_lanes
+        self.mesh = mesh
 
+        # every lane operation goes through the sharded lane executor:
+        # without a mesh, on a mesh of one shard on ``device``
+        lane_mesh = core_distributed.make_mesh(1, lanes_axis, device=device)
+        if mesh is not None:
+            if any(d.type != lane_mesh.devices[0].type for d in mesh.devices):
+                raise ValueError(f"mesh devices {[str(d) for d in mesh.devices]} are "
+                                 f"not of device={str(device)!r}'s type")
+            lane_mesh = mesh
         self._res = core_executor.make_resumable_executor(
-            spec, num_pri, num_sec, chunk_size, device=device, **executor_kw)
+            spec, num_pri, num_sec, chunk_size, device=lane_mesh.devices[0],
+            **executor_kw)
         self.device = self._res.device
         self.num_pri, self.num_sec = self._res.num_pri, self._res.num_sec
         self.chunk_size = self._res.chunk_size
         self._fresh = self._res.init_state()
-        self._states = core_executor.stack_states(self._fresh, self.num_lanes)
+        self._lanes = core_distributed.make_lane_sharded_executor(
+            self._res, lane_mesh, self.num_lanes, axis=lanes_axis)
+        self.lanes_per_device = self._lanes.lanes_per_device
+        self._states = self._lanes.init_states()
 
         # --- the bucket table: widths 1, 2, ..., W and the power-of-two
         # lane-group sizes a per-session flush or a storm can present
@@ -327,27 +346,19 @@ class SessionEngine:
 
     def _merge_lane(self, states, lane: int):
         """Merged buffers of one lane (a non-destructive snapshot)."""
-        return self._res.merge_state(core_executor.take_lanes(states, lane))
+        return self._lanes.merge_lane(states, lane)
 
     def _reset_lanes(self, states, idx):
-        """``states`` with lanes ``idx`` reset to fresh state in one scatter.
-        Duplicate indices are legal (the same fresh value lands twice), so
-        fixed-shape callers may pad ``idx`` by repeating a lane."""
-        idx = [int(i) for i in idx]
-        return core_executor.put_lanes(
-            states, idx, core_executor.stack_states(self._fresh, len(idx)))
+        """``states`` with lanes ``idx`` reset to fresh state, one scatter a
+        shard.  Duplicate indices are legal (the same fresh value lands
+        twice), so fixed-shape callers may pad ``idx`` by repeating a lane."""
+        return self._lanes.reset_lanes(states, idx)
 
     def _fold_lane(self, states, src: int, dst: int):
         """Fold secondary lane ``src`` into primary lane ``dst`` (add/max of
-        its merged buffers into dst's PriPE rows), then reset ``src``."""
-        contrib = self._merge_lane(states, src)
-        bufs = states.buffers.clone()
-        rows = bufs[dst, :self.num_pri]
-        if self.spec.combine == "add":
-            rows.add_(contrib)
-        else:
-            torch.maximum(rows, contrib, out=rows)
-        return self._reset_lanes(dataclasses.replace(states, buffers=bufs), [src])
+        its merged buffers into dst's PriPE rows, across shards), then
+        reset ``src``."""
+        return self._lanes.fold_lane(states, src, dst)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -543,8 +554,8 @@ class SessionEngine:
                     with seg_span(off, w):
                         chunks, mask = self._pack_chunks(lane_chunks, lane_masks, w,
                                                          offset=off)
-                        self._states, stats = self._res.scan_lanes(self._states, chunks,
-                                                                   mask)
+                        self._states, stats = self._lanes.run_lanes(self._states, chunks,
+                                                                    mask)
                         self._apply_exec_stats(
                             stats, row_sessions,
                             [min(max(len(c) - off, 0), w) for c in lane_chunks])
@@ -587,7 +598,7 @@ class SessionEngine:
                         group_chunks = group_chunks + [[] for _ in pads]
                         group_masks = group_masks + [[] for _ in pads]
                 row_sessions = [s] * n_real_lanes + [None] * (len(lanes) - n_real_lanes)
-                sub = core_executor.take_lanes(self._states, lanes)
+                sub = self._lanes.take_lanes(self._states, lanes)
                 segs = list(self._segments(group_chunks))
                 with self._segment_loop_span(segs, "session") as seg_span:
                     for off, w in segs:
@@ -599,7 +610,7 @@ class SessionEngine:
                                 stats, row_sessions,
                                 [min(max(len(c) - off, 0), w) for c in group_chunks])
                         width += w
-                self._states = core_executor.put_lanes(self._states, lanes, sub)
+                self._states = self._lanes.put_lanes(self._states, lanes, sub)
             sp.set(tuples=n_real, width=width)
         self._record_flush(n_real, group_chunks, width, scope="session",
                            snap=snap, ms=(time.perf_counter() - t0) * 1e3)
@@ -643,7 +654,7 @@ class SessionEngine:
             group_chunks += [[] for _ in pads]
             group_masks += [[] for _ in pads]
         row_sessions = live + [None] * (len(lanes) - n_real_lanes)
-        sub = core_executor.take_lanes(self._states, lanes)
+        sub = self._lanes.take_lanes(self._states, lanes)
         width = n_disp = 0
         for off, w in self._segments(group_chunks):
             with self.obs.span("scan.segment", cat="scan", scope="admit",
@@ -655,7 +666,7 @@ class SessionEngine:
                     [min(max(len(c) - off, 0), w) for c in group_chunks])
             width += w
             n_disp += 1
-        self._states = core_executor.put_lanes(self._states, lanes, sub)
+        self._states = self._lanes.put_lanes(self._states, lanes, sub)
         return group_chunks, width, flushed, n_disp
 
     # -------------------------------------------------------- bucket table
@@ -741,24 +752,30 @@ class SessionEngine:
         t0 = time.perf_counter()
         before = compilemon.snapshot()
         c, feat = self.chunk_size, self._feat_shape
-        scratch = core_executor.stack_states(self._fresh, self.num_lanes)
+        scratch = self._lanes.init_states()
 
         def zeros(lanes, w):
             return (np.zeros((lanes, w, c, *feat), self._dtype),
                     np.zeros((lanes, w, c), bool))
 
         for w in self._aot_widths:
-            self._res.scan_lanes(scratch, *zeros(self.num_lanes, w))
+            self._lanes.run_lanes(scratch, *zeros(self.num_lanes, w))
             self._aot.add(("eng", w))
         # one entry per (lane-group bucket, width) serves both the
-        # per-session tier and the storm path
+        # per-session tier and the storm path; a group is gathered onto the
+        # device of its first lane, so each shard's device starts one
+        starts: Dict[Any, int] = {}
+        for p, dev in enumerate(self._lanes.devices):
+            starts.setdefault(dev, p * self.lanes_per_device)
         for b in sorted({*self._group_buckets, *self._admit_buckets}):
-            idx = list(range(b))
-            sub = core_executor.take_lanes(scratch, idx)
+            for first in starts.values():
+                idx = [(first + k) % self.num_lanes for k in range(b)]
+                sub = self._lanes.take_lanes(scratch, idx)
+                for w in self._aot_widths:
+                    self._res.scan_lanes(sub, *zeros(b, w))
+                self._lanes.put_lanes(scratch, idx, sub)
             for w in self._aot_widths:
-                self._res.scan_lanes(sub, *zeros(b, w))
                 self._aot.add(("grp", b, w))
-            core_executor.put_lanes(scratch, idx, sub)
         for n in sorted({*range(1, 2 + self.secondary_slots), *self._admit_buckets}):
             self._reset_lanes(scratch, range(n))
         self._merge_lane(scratch, 0)
@@ -1113,7 +1130,7 @@ class SessionEngine:
                     "chunk_size": self.chunk_size,
                     "primary_slots": self.primary_slots,
                     "secondary_slots": self.secondary_slots,
-                    "mesh_devices": None,
+                    "mesh_devices": None if self.mesh is None else self.mesh.size,
                     "lanes_per_device": self.lanes_per_device,
                     "aot_buckets": (None if self._aot_widths is None
                                     else int(self._aot_widths[-1])),

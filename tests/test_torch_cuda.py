@@ -898,3 +898,99 @@ def test_service_recovery_on_card_answers_as_before(cuda_device, tmp_path):
             assert np.array_equal(merged, _service_oracle(parts[sid]))
     rec.shutdown()
     eng.shutdown()
+
+
+# ---------------------------------------------------- multi-device, sharded
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["histo", "hll"])
+def test_run_stream_on_card_shards_matches_cpu_mesh(cuda_device, app):
+    """run_stream with one PE a shard on 4 logical shards of the card
+    (3 + 1) equals the same on 4 CPU shards chunk by chunk; route_accumulate
+    launches once a shard a chunk."""
+    from repro_torch.core import distributed as D
+    spec = histo.make_spec(96, 1 << 20, 3) if app == "histo" else hll.make_spec(10, 3)
+    chunks, chunk = 8, 4 * 1024
+    data = zipf_tuples(chunks * chunk, 1 << 20, 1.5, seed=5).reshape(chunks, chunk, 2)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        per = []
+        before = route_accumulate.launches
+        merged, stats = D.run_stream(
+            spec, D.make_mesh(4, "pe", device=dev), data, 3, 1, capacity=400,
+            on_chunk=lambda c, b, l, d, w: per.append(
+                [torch.cat([x.cpu() for x in b]), l.cpu(), d.cpu(), w.cpu()]))
+        if dev.type == "cuda":
+            assert route_accumulate.launches - before == 4 * chunks
+        runs.append((merged.cpu(), stats, per))
+    (m_gpu, s_gpu, p_gpu), (m_cpu, s_cpu, p_cpu) = runs
+    assert torch.equal(m_gpu, m_cpu)
+    assert s_gpu["loads"] == s_cpu["loads"] and s_gpu["drops"] == s_cpu["drops"]
+    for a, b in zip(p_gpu, p_cpu):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_lane_sharded_ops_on_card_match_unsharded(cuda_device, shards):
+    """run_lanes, merge_lane and a cross-shard fold_lane on card shards
+    against the unsharded scan_lanes on the card; one PE launch a shard a
+    batched chunk."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import executor as E
+    res = E.make_resumable_executor(histo.make_spec(512, 1 << 20, 16), 16, 6, 1024,
+                                    device=cuda_device)
+    lanes, chunks = 4, 3
+    tuples = np.stack([zipf_tuples(chunks * 1024, 1 << 20, 1.0 * l, seed=20 + l)
+                       for l in range(lanes)]).reshape(lanes, chunks, 1024, 2)
+    mask = np.ones((lanes, chunks, 1024), bool)
+    mask[1, -1, 300:] = False
+    sh = D.make_lane_sharded_executor(res, D.make_mesh(shards, "lanes", device=cuda_device),
+                                      lanes)
+    before = route_accumulate.launches
+    states, stats = sh.run_lanes(sh.init_states(), tuples, mask)
+    assert route_accumulate.launches - before == shards * chunks
+    want, wstats = res.scan_lanes(E.stack_states(res.init_state(), lanes), tuples, mask)
+    got = sh.gather_states(states)
+    assert torch.equal(got.buffers, want.buffers)
+    assert torch.equal(stats.max_load, wstats.max_load)
+    for i in range(lanes):
+        assert torch.equal(sh.merge_lane(states, i).cpu(),
+                           res.merge_state(E.take_lanes(want, i)).cpu())
+    src, dst = lanes - 1, 0
+    folded = sh.gather_states(sh.fold_lane(states, src, dst))
+    expect = want.buffers[dst].clone()
+    expect[:16] += res.merge_state(E.take_lanes(want, src))
+    assert torch.equal(folded.buffers[dst], expect)
+    assert torch.equal(folded.buffers[src], res.init_state().buffers)
+
+
+@pytest.mark.cuda
+def test_meshed_session_engine_on_card_matches_local(cuda_device):
+    """The session op script on an engine whose 3 + 1 lanes lie on 4 card
+    shards and on a local card engine: identical answers, slot tables and
+    integer telemetry; the PE kernel once a shard an engine-wide step and
+    once a per-session step; no build event after warmup()."""
+    from repro_torch.core import compilemon
+    from repro_torch.core import distributed as D
+    from repro_torch.serve import SessionEngine
+    spec = histo.make_spec(512, 1 << 20, 4)
+    kw = {**_session_kw(), "secondary_slots": 1}
+    runs = []
+    compilemon.install()
+    for mesh in (D.make_mesh(4, "lanes", device=cuda_device), None):
+        eng = SessionEngine(spec, device=cuda_device, mesh=mesh, **kw)
+        eng.warmup(dtype=np.int32, feat_shape=(2,))
+        before, snap = route_accumulate.launches, compilemon.snapshot()
+        answers = _session_script(eng)
+        rows = [{k: v for k, v in r.items() if not k.endswith("ms")} for r in eng._telemetry]
+        per_step = 1 if mesh is None else 4
+        assert route_accumulate.launches - before == sum(
+            r["lane_width"] * (per_step if r["scope"] == "engine" else 1) for r in rows)
+        assert compilemon.since(snap).n_compiles == 0
+        runs.append((answers, rows, list(eng._slot_sid), eng._sec_assign.tolist()))
+    (a_m, r_m, s_m, g_m), (a_l, r_l, s_l, g_l) = runs
+    assert len(a_m) == len(a_l)
+    for x, y in zip(a_m, a_l):
+        assert np.array_equal(x, y)
+    assert r_m == r_l and s_m == s_l and g_m == g_l

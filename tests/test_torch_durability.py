@@ -235,7 +235,7 @@ def test_recovered_engine_equals_uninterrupted(tmp_path):
     eng2 = SessionEngine.recover(_spec(), tmp_path / "crashed", device="cpu")
     assert _engine_state(eng2) == _engine_state(ref)
     from repro_torch.interop import state_to_numpy
-    got, want = state_to_numpy(eng2._states), state_to_numpy(ref._states)
+    got, want = (state_to_numpy(e._lanes.gather_states(e._states)) for e in (eng2, ref))
     for k in ("buffers", "rr_base", "mode", "profile_hist", "chunks_in_mode"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     for t in sids:
@@ -511,14 +511,19 @@ def test_crash_mid_storm_replays_the_rest(tmp_path):
 def test_recover_refusals(tmp_path):
     eng = _engine(tmp_path)
     eng.shutdown()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        recover(_spec(), tmp_path, mesh=object(), device="cpu")
+    from repro_torch.core.distributed import make_mesh
+    with pytest.raises(ValueError, match="mesh has no 'lanes' axis"):
+        recover(_spec(), tmp_path, mesh=make_mesh(1, "pe", device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="must be divisible"):
+        recover(_spec(), tmp_path, mesh=make_mesh(7, "lanes", device="cpu"), device="cpu")
     from repro_torch.apps import hll
     with pytest.raises(ValueError, match="serving app"):
         recover(hll.make_spec(8, M), tmp_path, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             recover(_spec(), tmp_path)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            recover(_spec(), tmp_path, mesh=make_mesh(5, "lanes"))
 
 
 # ------------------------------------------------------------ across packages

@@ -119,15 +119,17 @@ def _answer_eq(got, want):
 
 class Twin:
     """One op script, two engines (JAX's and the port's), checked after
-    every op."""
+    every op.  ``mesh`` goes to the port's engine only (a meshed port
+    engine against JAX's local one): the two then differ in the mesh keys
+    of their telemetry config alone."""
 
-    def __init__(self, jspec=None, spec=None, **kw):
+    def __init__(self, jspec=None, spec=None, mesh=None, **kw):
         kw.setdefault("primary_slots", PRIMARY)
         kw.setdefault("secondary_slots", SECONDARY)
         shape = dict(num_pri=M, num_sec=X, chunk_size=CHUNK)
         self.j = JSessionEngine(jspec or jhisto.make_spec(BINS, DOMAIN, M), **shape, **kw)
         self.p = SessionEngine(spec or histo.make_spec(BINS, DOMAIN, M), **shape,
-                               device="cpu", **kw)
+                               device="cpu", mesh=mesh, **kw)
         self.j._GAUGE_SCAN_S = self.p._GAUGE_SCAN_S = 0.0
         self.warm_from: Optional[int] = None     # telemetry row where both are warm
 
@@ -173,6 +175,9 @@ class Twin:
         assert _series(p, False) == _series(j, False)
         tj = j.telemetry_record(validate=False)["extra"]
         tp = p.telemetry_record(validate=True)["extra"]
+        if p.mesh is not None:
+            tj = {**tj, "config": {**tj["config"], "mesh_devices": p.mesh.size,
+                                   "lanes_per_device": p.num_lanes // p.mesh.size}}
         assert tp["config"] == tj["config"]
         ints = ("sessions_opened", "flushes", "slot_reschedules", "tuples_flushed",
                 "storms", "batch_admitted")
@@ -285,15 +290,22 @@ def test_error_messages_equal_jax():
 
 
 def test_mesh_and_device_refusals():
+    from repro_torch.core.distributed import make_mesh
     spec = histo.make_spec(BINS, DOMAIN, M)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        SessionEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK, mesh=object(),
+    with pytest.raises(ValueError, match="mesh has no 'lanes' axis"):
+        SessionEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK,
+                      mesh=make_mesh(1, "pe", device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="must be divisible"):
+        SessionEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK, primary_slots=2,
+                      secondary_slots=1, mesh=make_mesh(2, "lanes", device="cpu"),
                       device="cpu")
     with pytest.raises(ValueError, match="secondary_slots=0"):
         _engine(dp.make_spec(3, M, 256), secondary_slots=1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SessionEngine(spec, num_pri=M, num_sec=X, chunk_size=CHUNK)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(2, "lanes")
 
 
 def test_tuned_plan_config():
@@ -857,9 +869,10 @@ class OracleHarness:
     ``flush_session`` stay engine calls: a blocking client returns only
     after the service's worker has finished the batch."""
 
-    def __init__(self, workdir=None, network: bool = False):
+    def __init__(self, workdir=None, network: bool = False, mesh=None):
         kw = dict(num_pri=M, num_sec=X, chunk_size=CHUNK, primary_slots=PRIMARY,
-                  secondary_slots=SECONDARY, aot_buckets=AOT, device="cpu")
+                  secondary_slots=SECONDARY, aot_buckets=AOT, device="cpu", mesh=mesh)
+        self.mesh = mesh
         self.spec = histo.make_spec(BINS, DOMAIN, M)
         self.workdir = workdir
         self.eng = (DurableSessionEngine(self.spec, directory=workdir, checkpoint_every=2,
@@ -923,7 +936,8 @@ class OracleHarness:
     def recover(self):
         self._stop_service()
         self.eng.shutdown()
-        self.eng = SessionEngine.recover(self.spec, self.workdir, device="cpu")
+        self.eng = SessionEngine.recover(self.spec, self.workdir, mesh=self.mesh,
+                                         device="cpu")
         if self.network:
             self._start_service()
         assert self.eng.recovery_info["replay_anomalies"] == 0
@@ -964,12 +978,13 @@ if HAVE_HYPOTHESIS:
     class _PortStorm(RuleBasedStateMachine):
         durable = False
         network = False
+        mesh = None          # a core.distributed.Mesh for the port's engine
 
         def __init__(self):
             super().__init__()
             self._tmp = tempfile.TemporaryDirectory() if self.durable else None
             self.h = OracleHarness(self._tmp.name if self._tmp else None,
-                                   network=self.network)
+                                   network=self.network, mesh=self.mesh)
 
         def teardown(self):
             self.h.shutdown()
