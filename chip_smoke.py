@@ -59,7 +59,7 @@ Phases (any failure exits non-zero before the result lines):
      tails; 512 batched chunks, ~16 M tuples in one flush) and a planned
      batch of 5 tenants under per-tenant static plans (3 pad lanes); HHD, 8
      tenants at alpha 3 (cms_update over lanes); HLL, 4 ragged tenants (4
-     pad lanes).  Every tenant equal to its oracle and, merged and every
+     pad lanes); 2^20 tuples a tenant outside the online batch.  Every tenant equal to its oracle and, merged and every
      ExecStats field, to its stream alone through make_executor; 64 chunks
      of the online batch identical on card and CPU; pad lanes left as
      init_state made them; each PE kernel once per batched chunk; the
@@ -161,6 +161,31 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      first layer's inputs of a prefill run, beside its bound; flash also on
      float32 copies of those inputs (the CUDA-core kernel), and dispatch also
      on the first layer's inputs of a decode step at 64 slots.
+Then the slice's other configs, one model on the card at a time:
+  E. (a) the soft-capped flash kernel against its plain version, bf16 and
+     float32, one launch each: gemma2's [4, 1024] shape (H 8 / KV 4, dh 256,
+     cap 50), one sequence of 5120 with the window of 4096, a window of 256,
+     q x 8, and MLA's [4, 1024] shape (H = KV = 16, dh 192, no cap); the
+     causal first row must be v's row 0;
+     (b) deepseek-v2-lite-16b at full width, 8 of its 27 layers: prefill_fn
+     on [4, 1024] (finite; flash, dispatch and combine once a layer) and
+     the serve CLI's run (every request returns 16 tokens), then
+     place_slot_weights at layer 0 with the plan the live path derives from
+     a prefill batch: the placed moe_apply (80 slots) equal to the live one
+     within 1e-3;
+     (c) gemma2-2b at full width and depth (26 layers): prefill_fn on [4,
+     1024] and on [1, 5120], where the local layers' window masks (flash 26
+     times a forward), and the serve run;
+     (d) llama3.2-3b (all 28 layers), yi-6b (8 of 32) and starcoder2-15b (8
+     of 40): prefill_fn on [1, 1024] and the serve run, llama3.2-3b's
+     through the serve CLI itself, repro_torch.launch.serve.main(["--full"])
+     at its default arch;
+     (e) deepseek's and gemma2's first 2 layers in float32 (TF32 off) on the
+     card and the CPU: prefill logits on [1, 256] within 1e-3, identical
+     greedy tokens of a 2-request DecodeEngine;
+     (f) flash at gemma2's prefill shape with cap 50 and cap 0 and at MLA's,
+     beside SDPA without a cap and the bound; prefill tokens/s of each
+     config.  Prints an lm_config line a config and the lm_configs line.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
 count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14: phase 11's windows
@@ -199,7 +224,7 @@ SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
 LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
 LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
 STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
-STREAM_TUPLES, STREAM_SMALL = 2**21, 2**21    # a tenant of the online batch; of the others
+STREAM_TUPLES, STREAM_SMALL = 2**21, 2**20    # a tenant of the online batch; of the others
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
@@ -298,6 +323,27 @@ def bound_ms(nbytes: int, ops: int,
     float32 CUDA-core rate: the data sheet lists no int32 rate; int32 adds
     issue at the same rate)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_pairs(b, h, sq, sk, causal, window) -> int:
+    """The (q, k) pairs the masks keep: the work of an attention call."""
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum()) * b * h
+
+
+def flash_bound(q, k, v, causal, window, cap) -> tuple[float, str]:
+    """Bytes: q, k, v read and the output written once.  Operations: QK^T
+    and PV, 4 dh a kept pair, on the tensor cores (bf16); with a cap, 3
+    float32 operations a kept pair more (a scale, tanh, a product) at the
+    CUDA cores' rate, added in time."""
+    b, sq, h, dh = q.shape
+    pairs = flash_pairs(b, h, sq, k.shape[1], causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * dh * pairs / BF16_OPS_PER_S + (3 * pairs / FP32_OPS_PER_S if cap else 0)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -700,9 +746,9 @@ def stream_path(dev, stream_3) -> tuple[dict, dict]:
     obs bundle.  HISTO (512 bins, domain 2^20): an online batch of 8
     tenants at Zipf alpha STREAM_ALPHAS, 2^21 - r_i tuples each (r_0 = 0,
     seven ragged tails), and a planned batch of 5 tenants with plans from
-    make_static_plan on a 0.1% sample, 2^21 tuples each (3 pad lanes); HHD
-    (depth 4, width 1024): 8 tenants at alpha 3, 2^21 each; HLL (p = 12,
-    domain 2^22): 4 ragged tenants (4 pad lanes).  M = 16, X = 14, chunks of
+    make_static_plan on a 0.1% sample, STREAM_SMALL tuples each (3 pad
+    lanes); HHD (depth 4, width 1024): 8 tenants at alpha 3, STREAM_SMALL
+    each; HLL (p = 12, domain 2^22): 4 ragged tenants (4 pad lanes).  M = 16, X = 14, chunks of
     CHUNK, max_streams = STREAM_LANES.  Checks: every tenant equal to the
     app's oracle and to its stream alone through make_executor on the card
     (merged and every ExecStats field); the first PARITY_LANE_CHUNKS chunks
@@ -2323,13 +2369,48 @@ def load_engine(model, params, dev):
     return engine
 
 
+def cli_requests(vocab: int) -> list:
+    """The requests of repro_torch.launch.serve's run: 8, prompts of 4-16
+    tokens (its seed, 0), 16 new tokens each."""
+    from repro_torch.serve.engine import Request
+    prompts = np.random.default_rng(0)
+    requests = []
+    for rid in range(8):
+        plen = int(prompts.integers(4, 17))
+        requests.append(Request(rid, prompts.integers(0, vocab, size=plen)
+                                .astype(np.int32), 16))
+    return requests
+
+
+def serve_smoke(model, params, requests) -> dict:
+    """The serve CLI's run: a DecodeEngine of SMOKE_SLOTS slots over
+    ``requests`` until every one is done (admission, continuous batching,
+    exit); every request must return 16 tokens."""
+    from repro_torch.serve.engine import DecodeEngine
+    engine = DecodeEngine(model, params, slots=SMOKE_SLOTS, max_len=SMOKE_MAX_LEN)
+    for req in requests:
+        engine.submit(req)
+    t0 = time.perf_counter()
+    ticks = 0
+    while engine.queue or any(r is not None for r in engine.slot_req):
+        engine.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    smoke_s = time.perf_counter() - t0
+    assert all(len(r.out) == 16 and r.done for r in requests), \
+        [len(r.out) for r in requests]
+    return {"requests": len(requests), "new_tokens": 16 * len(requests),
+            "prompt_tokens": int(sum(len(r.prompt) for r in requests)),
+            "slots": SMOKE_SLOTS, "max_len": SMOKE_MAX_LEN, "engine_ticks": ticks,
+            "s": smoke_s}
+
+
 def lm_path(dev):
     """Phase B: the MoE LM's inference entry points at full width.  Returns
     the record, the main path's launch counts, the model, its weights, the
     prefill tokens and the serving-load engine."""
     from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
     from repro_torch.models import zoo
-    from repro_torch.serve.engine import DecodeEngine, Request
     cfg = dataclasses.replace(CONFIG, num_layers=LM_LAYERS)
     model = zoo.build(cfg, device=dev)
     t0 = time.perf_counter()
@@ -2345,12 +2426,7 @@ def lm_path(dev):
     counted = dataclasses.replace(model, decode_fn=decode_fn)
     rng = np.random.default_rng(SEED)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, PREFILL_SHAPE), device=dev)
-    prompts = np.random.default_rng(0)     # repro.launch.serve's prompts, seed 0
-    requests = []
-    for rid in range(8):
-        plen = int(prompts.integers(4, 17))
-        requests.append(Request(rid, prompts.integers(0, cfg.vocab, size=plen)
-                                .astype(np.int32), 16))
+    requests = cli_requests(cfg.vocab)
 
     torch.cuda.synchronize()
     reset_counts()                        # ---- the main path from here
@@ -2360,18 +2436,8 @@ def lm_path(dev):
     first_prefill_s = time.perf_counter() - t0
     after_prefill = lm_counts()
     # a smoke of the serve CLI's run: admission, continuous batching, exit
-    engine = DecodeEngine(counted, params, slots=SMOKE_SLOTS, max_len=SMOKE_MAX_LEN)
-    for req in requests:
-        engine.submit(req)
-    t0 = time.perf_counter()
-    ticks = 0
-    while engine.queue or any(r is not None for r in engine.slot_req):
-        engine.step()
-        ticks += 1
-    torch.cuda.synchronize()
-    smoke_s = time.perf_counter() - t0
-    smoke_calls = calls[0]
-    del engine
+    smoke = serve_smoke(counted, params, requests)
+    smoke["decode_fn_calls"] = calls[0]
     # decode at serving load: LOAD_SLOTS busy slots with long contexts
     engine = load_engine(counted, params, dev)
     for _ in range(2):
@@ -2392,8 +2458,6 @@ def lm_path(dev):
     assert logits.shape == (*PREFILL_SHAPE, cfg.vocab) and logits.dtype == cfg.cdtype
     assert bool(torch.isfinite(logits).all()), "prefill logits are not finite"
     assert after_prefill == dict.fromkeys(LM_KERNELS, LM_LAYERS), after_prefill
-    assert all(len(r.out) == 16 and r.done for r in requests), \
-        [len(r.out) for r in requests]
     assert load_logits.shape == (LOAD_SLOTS, 1, cfg.vocab)
     assert bool(torch.isfinite(load_logits).all()), "decode logits are not finite"
     assert all(len(r.out) == 3 + LOAD_STEPS and not r.done
@@ -2415,11 +2479,7 @@ def lm_path(dev):
                "context_mean": float(contexts.mean()), "s": load_s,
                "ms_per_step": 1e3 * load_s / LOAD_STEPS,
                "tokens_per_s": LOAD_SLOTS * LOAD_STEPS / load_s},
-           "serve_smoke": {
-               "requests": len(requests), "new_tokens": 16 * len(requests),
-               "prompt_tokens": int(sum(len(r.prompt) for r in requests)),
-               "slots": SMOKE_SLOTS, "max_len": SMOKE_MAX_LEN,
-               "decode_fn_calls": smoke_calls, "engine_ticks": ticks, "s": smoke_s},
+           "serve_smoke": smoke,
            "decode_fn_calls": calls[0], "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     return rec, counts, model, params, tokens, engine
@@ -2467,26 +2527,27 @@ def profile_lm(model, params, tokens, engine) -> dict:
     return out
 
 
-def lm_cpu_parity(dev, params8) -> dict:
-    """Phase C: full width, 2 layers, compute float32 with TF32 off; the
-    weights are the first 2 layers of phase B's (float32), copied to the
-    CPU.  Prefill logits within rtol = atol = 1e-3 (float32 sums in another
-    order over d_model 2048 and 163840 logits) and identical greedy tokens."""
+def lm_cpu_parity(dev, params_deep, config=None, n_tokens: int = 64) -> dict:
+    """Phase C (and E (e)): full width, 2 layers, compute float32 with TF32
+    off; the weights are the first 2 layers of ``params_deep`` (float32, a
+    deeper run's of ``config``, default moonshot's), copied to the CPU.
+    Prefill logits on [1, n_tokens] within rtol = atol = 1e-3 (float32 sums
+    in another order over d_model and the vocabulary) and identical greedy
+    tokens."""
     from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
     from repro_torch.models import zoo
     from repro_torch.models.transformer import tree_to
     from repro_torch.serve.engine import DecodeEngine, Request
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(CONFIG, num_layers=2, compute_dtype="float32")
-    first2 = lambda tree: ({k: first2(v) for k, v in tree.items()}
-                           if isinstance(tree, dict) else tree[:2])
-    gpu_params = {"embed": params8["embed"], "blocks": first2(params8["blocks"]),
-                  "final_norm": params8["final_norm"]}
+    cfg = dataclasses.replace(config or CONFIG, num_layers=2, compute_dtype="float32")
+    first = lambda tree: ({k: first(v) for k, v in tree.items()}
+                          if isinstance(tree, dict) else tree[:cfg.num_periods])
+    gpu_params = {k: first(v) if k == "blocks" else v for k, v in params_deep.items()}
     t0 = time.perf_counter()
     cpu_params = tree_to(gpu_params, torch.device("cpu"))
     rng = np.random.default_rng(SEED + 1)
-    tokens = rng.integers(0, cfg.vocab, (1, 64))
+    tokens = rng.integers(0, cfg.vocab, (1, n_tokens))
     prompts = [rng.integers(0, cfg.vocab, 4).astype(np.int32) for _ in range(2)]
     outs = []
     for where, params in ((dev, gpu_params), (torch.device("cpu"), cpu_params)):
@@ -2501,7 +2562,8 @@ def lm_cpu_parity(dev, params8) -> dict:
     (l_gpu, t_gpu), (l_cpu, t_cpu) = outs
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-3, atol=1e-3)
     assert t_gpu == t_cpu, (t_gpu, t_cpu)
-    return {"layers": 2, "compute_dtype": "float32", "prefill_tokens": [1, 64],
+    return {"arch": cfg.name, "layers": 2, "compute_dtype": "float32",
+            "prefill_tokens": [1, n_tokens],
             "max_abs_logit_diff": float((l_gpu - l_cpu).abs().max()),
             "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0}
 
@@ -2624,15 +2686,9 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
     assert kw["causal"] and not kw["window"] and not kw["softcap"], kw
     kw = {"causal": True, "window": 0}
     b, sq, h, dh = q.shape
-    sk = k.shape[1]
-    window = kw["window"]
-    i = np.arange(sq)
-    hi = np.minimum(i + 1, sk) if kw["causal"] else np.full(sq, sk)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum()) * b * h
+    pairs = flash_pairs(b, h, sq, k.shape[1], True, 0)
     fn = lambda: dispatch.flash_attention(q, k, v, **kw)
-    b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                          4 * dh * pairs, BF16_OPS_PER_S)
+    b_ms, b_by = flash_bound(q, k, v, True, 0, 0.0)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     q32, k32, v32 = (x.float() for x in (q, k, v))
     fn32 = lambda: dispatch.flash_attention(q32, k32, v32, **kw)
@@ -2655,6 +2711,279 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
         "library_call": "F.scaled_dot_product_attention(is_causal=True)"})
     out[-1]["kernel_ms"] = out[-1]["ms"]
     return out
+
+
+
+# ---------------------------------------------------------------- phase E
+
+# (name, B, S, H, KV, dh, window, cap, q scale): gemma2's prefill shape with
+# its cap of 50; one sequence long enough that the local layers' window of
+# 4096 masks; a window of 256; q x 8 (the running max moves); MLA's prefill
+# (qk dim 192, V padded to it, no cap)
+E_FLASH = (("gemma2", 4, 1024, 8, 4, 256, 0, 50.0, 1),
+           ("gemma2_window4096", 1, 5120, 8, 4, 256, 4096, 50.0, 1),
+           ("gemma2_window256", 4, 1024, 8, 4, 256, 256, 50.0, 1),
+           ("gemma2_q_x8", 4, 1024, 8, 4, 256, 0, 50.0, 8),
+           ("mla", 4, 1024, 16, 16, 192, 0, 0.0, 1))
+# (arch, layers run, prefill shapes); None = all of the config's layers.
+# Float32 weights: deepseek ~2.34 GB a layer (27 ~64 GB leave no room for
+# the placed copies), gemma2 ~10.5 GB in all, llama3.2-3b ~12.9 GB,
+# starcoder2-15b ~1.5 GB a layer (40 ~63 GB).  yi-6b runs 8 of its 32
+# layers: at full depth the script passed 600 s (the serve run's decode
+# steps are host-bound, ~0.2 s a layer).  llama3.2-3b's serve run is the
+# CLI's own (serve_cli_default).
+E_CONFIGS = (("deepseek-v2-lite-16b", 8, ((4, 1024),)),
+             ("gemma2-2b", None, ((4, 1024), (1, 5120))),
+             ("llama3.2-3b", None, ((1, 1024),)),
+             ("yi-6b", 8, ((1, 1024),)),
+             ("starcoder2-15b", 8, ((1, 1024),)))
+E_CLI_ARCH = "llama3.2-3b"            # repro_torch.launch.serve's default
+E_PARITY_TOKENS = 256
+
+
+def check_flash_softcap(dev) -> dict:
+    """Phase E (a): the soft-capped flash kernel (and MLA's head dim)
+    against its plain version on CUDA tensors, bf16 and float32, one launch
+    each; rtol = atol = 1e-5 (float32) or 2e-2 (bfloat16), as phase A.  The
+    causal first row reads key 0 alone: its output must be v's row 0, which
+    a masked sentinel turned into -cap by the cap would spoil."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = {}
+    for name, b, sl, h, kvh, dh, window, cap, q_scale in E_FLASH:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q = (q_scale * torch.randn((b, sl, h, dh), generator=gen, device=dev)).to(dtype)
+            k, v = (torch.randn((b, sl, kvh, dh), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            before = flash_attention.launches
+            got = dispatch.flash_attention(q, k, v, causal=True, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1, name
+            want = ref.flash_attention(q, k, v, causal=True, window=window, softcap=cap)
+            first = v[:, :1].repeat_interleave(h // kvh, dim=2)
+            for what, g, w in (("", got, want), ("_first_row", got[:, :1], first)):
+                diff = (g.double() - w.double()).abs()
+                key = f"{name}{what}_{str(dtype).removeprefix('torch.')}"
+                err[key] = float(diff.max())
+                assert bool((diff <= tol * (1 + w.double().abs())).all()), \
+                    f"flash_attention {key}: max |err| {err[key]}"
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def lm_config_path(dev, arch: str, layers, prefill_shapes,
+                   serve: bool = True) -> tuple[dict, dict, object, dict]:
+    """Phase E (b)-(d): one config at full width (depth cut to ``layers``),
+    seeded random weights.  The main path, counted from 0: prefill_fn on
+    each of ``prefill_shapes`` (finite logits; flash_attention once a layer,
+    the MoE pack and unpack once a layer for an MoE config) and, with
+    ``serve``, the serve CLI's run (every request returns 16 tokens; pack
+    and unpack once a layer a decode_fn call).  Then prefill tokens/s at
+    each shape.  Returns the record, the launch counts, the model and its
+    weights."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    full = get(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    model = zoo.build(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(model.generator(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = [0]
+
+    def decode_fn(p, batch):
+        calls[0] += 1
+        return model.decode_fn(p, batch)
+
+    counted = dataclasses.replace(model, decode_fn=decode_fn)
+    rng = np.random.default_rng(SEED)
+    batches = [torch.as_tensor(rng.integers(0, cfg.vocab, shape), device=dev)
+               for shape in prefill_shapes]
+    moe = cfg.family == "moe"
+
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    first_s = []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        logits = counted.prefill_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s.append(time.perf_counter() - t0)
+        assert logits.shape == (*tokens.shape, cfg.vocab) and logits.dtype == cfg.cdtype
+        assert bool(torch.isfinite(logits).all()), f"{arch}: prefill logits are not finite"
+        del logits
+    after_prefill = lm_counts()
+    if serve:
+        smoke = serve_smoke(counted, params, cli_requests(cfg.vocab))
+        smoke["decode_fn_calls"] = calls[0]
+    counts = lm_counts()                  # ---- to here
+    assert not any(pe_counts().values()), pe_counts()
+
+    n = len(batches)
+    assert after_prefill == {"flash_attention": n * cfg.num_layers,
+                             "onehot_dispatch": n * cfg.num_layers * moe,
+                             "onehot_combine": n * cfg.num_layers * moe}, after_prefill
+    for name in ("onehot_dispatch", "onehot_combine"):
+        assert counts[name] == cfg.num_layers * (n + calls[0]) * moe, (name, counts, calls)
+    assert counts["flash_attention"] == n * cfg.num_layers, counts
+    prefill = []
+    for tokens, s in zip(batches, first_s):
+        ms = host_ms(lambda: model.prefill_fn(params, {"tokens": tokens}), calls=3)
+        prefill.append({"tokens": list(tokens.shape), "first_s": s, "ms_per_forward": ms,
+                        "tokens_per_s": tokens.numel() / (ms * 1e-3)})
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "of_layers": full.num_layers,
+           "params_init_s": init_s, "prefill": prefill,
+           "serve_smoke": smoke if serve else None, "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    return rec, counts, model, params
+
+
+def placement_check(dev, model, params) -> dict:
+    """Phase E (b): ``place_slot_weights`` at layer 0 with the plan that the
+    live path derives from the same batch (the layer-0 FFN input of a
+    [4, 1024] prefill): the placed moe_apply (pack and unpack at P = S_pad)
+    equal to the live one within rtol = atol = 1e-3 (bf16)."""
+    from repro_torch.core.scheduler import schedule_secpes
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.kernels.moe_onehot import onehot_dispatch
+    cfg = model.cfg
+    pp = T.take(params["blocks"], 0)
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, PREFILL_SHAPE), device=dev)
+    x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
+    x = x + T._apply_mixer(cfg, cfg.block_pattern[0], pp["0.mixer"],
+                           L.rmsnorm(pp["0.norm1"], x, cfg.norm_eps))
+    h = L.rmsnorm(pp["0.norm2"], x, cfg.norm_eps)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor, num_secondary=cfg.ditto_secondary,
+              act=cfg.act, compute_dtype=cfg.cdtype, group_size=cfg.moe_group_size)
+    live, aux_live = MOE.moe_apply(pp["0.ffn"], h, **kw)
+    probs = torch.softmax(h.reshape(-1, cfg.d_model).float() @ pp["0.ffn"]["router"], -1)
+    ids = torch.topk(probs, cfg.top_k, dim=-1).indices
+    hist = torch.bincount(ids.reshape(-1), minlength=cfg.num_experts).to(torch.int32)
+    assignment = schedule_secpes(hist, cfg.ditto_secondary)
+    placed = MOE.place_slot_weights(pp["0.ffn"], assignment, cfg.num_experts)
+    slots = placed["up_slots"].shape[0]
+    before = onehot_dispatch.launches
+    got, aux = MOE.moe_apply(placed, h, **kw)
+    torch.cuda.synchronize()
+    assert onehot_dispatch.launches == before + 1
+    torch.testing.assert_close(got, live, rtol=1e-3, atol=1e-3)
+    assert float(aux["drop_frac"]) == float(aux_live["drop_frac"])
+    rec = {"layer": 0, "tokens": list(PREFILL_SHAPE), "slots": slots,
+           "assignment": assignment.tolist(),
+           "max_abs_diff": float((got.float() - live.float()).abs().max()),
+           "drop_frac": float(aux["drop_frac"]),
+           "max_slot_load": int(aux["max_slot_load"]),
+           "max_designated_load": int(aux["max_designated_load"])}
+    del placed
+    return rec
+
+
+def serve_cli_default(dev) -> dict:
+    """Phase E (d): ``repro_torch.launch.serve.main(["--full"])``, the CLI
+    at its default arch (llama3.2-3b) on the card, its output captured and
+    its requests recorded: every one returns 16 tokens."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    seen = []
+
+    class Recording(serve.DecodeEngine):
+        def submit(self, req):
+            seen.append(req)
+            super().submit(req)
+
+    out = io.StringIO()
+    original = serve.DecodeEngine
+    serve.DecodeEngine = Recording
+    try:
+        torch.cuda.synchronize()
+        reset_counts()                    # ---- the main path from here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            serve.main(["--full"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = lm_counts()              # ---- to here
+    finally:
+        serve.DecodeEngine = original
+    line = out.getvalue().strip()
+    assert line.startswith("served 8 requests / 128 tokens"), line
+    assert line.endswith(f"{SMOKE_SLOTS} slots, {dev.type})"), line
+    assert len(seen) == 8 and all(len(r.out) == 16 and r.done for r in seen), \
+        [len(r.out) for r in seen]
+    assert not any(counts.values()), counts     # a dense decode step launches none
+    return {"argv": ["--full"], "arch": E_CLI_ARCH, "output": line, "wall_s": wall_s,
+            "launches": counts}
+
+
+def flash_times(dev) -> dict:
+    """Phase E (f): the flash kernel at gemma2's prefill shape with cap 50
+    and cap 0, and at MLA's, each beside SDPA at the same shape with no cap
+    (the only library yardstick: no library call soft-caps) and its bound;
+    CUDA events, in turns."""
+    from repro_torch.kernels import dispatch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, b, sl, h, kvh, dh, caps in (("gemma2", 4, 1024, 8, 4, 256, (50.0, 0.0)),
+                                          ("mla", 4, 1024, 16, 16, 192, (0.0,))):
+        q = torch.randn((b, sl, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, sl, kvh, dh), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2) for x in (k, v))
+        fns = {f"cap{cap:g}": (lambda c=cap: dispatch.flash_attention(q, k, v, softcap=c))
+               for cap in caps}
+        fns["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        turns = cuda_ms_turns(fns, iters=50)
+        rec = {"shape": f"B={b} S={sl} H={h} KV={kvh} dh={dh} causal bfloat16",
+               "library_ms": turns.pop("sdpa"),
+               "library_call": "F.scaled_dot_product_attention(is_causal=True), "
+                               "KV heads repeated outside the timing, no cap"}
+        for key, ms in turns.items():
+            cap = float(key.removeprefix("cap"))
+            b_ms, b_by = flash_bound(q, k, v, True, 0, cap)
+            rec[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        out[name] = rec
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_configs_path(dev) -> tuple[dict, dict]:
+    """Phase E: the slice's other configs on the card, one model at a time.
+    Returns the lm_configs record and the main paths' launch counts,
+    summed."""
+    from repro_torch.configs import get
+    total = dict.fromkeys(LM_KERNELS, 0)
+    rec = {"flash_check_max_abs_err": check_flash_softcap(dev), "configs": []}
+    for arch, layers, shapes in E_CONFIGS:
+        t0 = time.perf_counter()
+        one, counts, model, params = lm_config_path(dev, arch, layers, shapes,
+                                                    serve=arch != E_CLI_ARCH)
+        for k, c in counts.items():
+            total[k] += c
+        if arch == "deepseek-v2-lite-16b":
+            one["placement"] = placement_check(dev, model, params)
+        if arch in ("deepseek-v2-lite-16b", "gemma2-2b"):
+            one["cpu_parity"] = lm_cpu_parity(dev, params, get(arch), E_PARITY_TOKENS)
+        del model, params
+        torch.cuda.empty_cache()
+        if arch == E_CLI_ARCH:
+            one["serve_cli"] = serve_cli_default(dev)
+            torch.cuda.empty_cache()
+        one["phase_s"] = time.perf_counter() - t0
+        print("lm_config", json.dumps(one))
+        rec["configs"].append({k: one[k] for k in ("arch", "layers", "prefill", "phase_s")})
+    rec["flash_times"] = flash_times(dev)
+    return rec, total
 
 
 def main() -> int:
@@ -2969,6 +3298,28 @@ def main() -> int:
     # ---- D. the LM kernels' times at the prefill shape
     kernels += lm_kernel_times(dev, model, params, tokens, lm_launches, lm_err)
     del model, params
+    torch.cuda.empty_cache()
+
+    # ---- E. MLA and deepseek, soft-capped gemma2, the dense configs
+    t0 = time.perf_counter()
+    rec, counts = lm_configs_path(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print("lm_configs", json.dumps(rec))
+    for k in kernels:
+        k["launches"] += counts.get(k["name"], 0)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    times = rec["flash_times"]
+    flash.update({
+        "ms_gemma2_cap50": times["gemma2"]["cap50"]["ms"],
+        "bound_ms_gemma2_cap50": times["gemma2"]["cap50"]["bound_ms"],
+        "ms_gemma2_cap0": times["gemma2"]["cap0"]["ms"],
+        "library_ms_gemma2": times["gemma2"]["library_ms"],
+        "ms_mla": times["mla"]["cap0"]["ms"], "bound_ms_mla": times["mla"]["cap0"]["bound_ms"],
+        "library_ms_mla": times["mla"]["library_ms"],
+        "max_abs_err_softcap": max(rec["flash_check_max_abs_err"].values())})
+    flash["shape"] += ("; *_gemma2: B=4 S=1024 H=8 KV=4 dh=256 causal bfloat16 (cap 50 "
+                       "and 0); *_mla: B=4 S=1024 H=KV=16 dh=192; library_ms_* SDPA "
+                       "without a cap")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

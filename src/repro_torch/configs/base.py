@@ -1,7 +1,7 @@
 """Architecture configuration schema of the port's language models.
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the decoder-only
-attention + MoE family reads, with torch dtypes behind ``cdtype`` and
+attention/MLA + dense/MoE family reads, with torch dtypes behind ``cdtype`` and
 ``pdtype``.  ``moe_impl`` is gone: its three values compute one function
 in the JAX package, and the port has one realization (the tensor's device
 picks plain PyTorch or the CUDA kernels).
@@ -25,7 +25,7 @@ class ArchConfig:
     d_model: int
     vocab: int
     # repeating period: layer i uses pattern[i % len(pattern)]
-    block_pattern: Tuple[str, ...] = ("attn",)  # attn|attn_local|attn_nocausal
+    block_pattern: Tuple[str, ...] = ("attn",)  # attn|attn_local|attn_nocausal|mla
     ffn_pattern: Tuple[str, ...] = ("dense",)   # dense|moe
     # attention geometry
     num_heads: int = 0
@@ -35,8 +35,13 @@ class ArchConfig:
     rope_theta: float = 10000.0
     use_rope: bool = True
     window: int = 4096                # local-attention window (attn_local)
-    attn_softcap: float = 0.0
-    logit_softcap: float = 0.0
+    attn_softcap: float = 0.0         # gemma2 attention-logit capping
+    logit_softcap: float = 0.0        # gemma2 final-logit capping
+    # MLA geometry (deepseek)
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     # MoE (+ Ditto expert replication)
     num_experts: int = 0
     top_k: int = 0

@@ -91,8 +91,9 @@ def tree_from_numpy(tree, device) -> dict:
 
 def lm_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
     """The port's LM params from a nested dict of numpy arrays in the JAX
-    package's layout (``repro.models.transformer.init_params``).  Leaves
-    keep their dtypes.  Raises if the tree does not fit ``cfg``: the block
+    package's layout (``repro.models.transformer.init_params``; attention
+    and MLA mixers, dense and MoE FFNs, ``place_slot_weights``' trees).
+    Leaves keep their dtypes.  Raises if the tree does not fit ``cfg``: the block
     keys of its layer pattern, every block leaf stacked over
     ``cfg.num_periods``, and the embedding table's shape."""
     device = resolve_device(device)

@@ -1,10 +1,16 @@
 // Flash (online-softmax) attention forward for Hopper (sm_90a).
 //
-//   out[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,h',:] * dh^-0.5) v[b,j,h',:]
+//   out[b, i, h, :] = sum_j softmax_j(c(q[b,i,h,:] . k[b,j,h',:] * dh^-0.5)) v[b,j,h',:]
 //
 // over the keys j that the masks keep: causal (j <= i), a sliding window
 // (j > i - window when window > 0) and key padding (j < Sk); h' = h / (H/KV)
-// (GQA by index, never materialised).  Replaces
+// (GQA by index, never materialised).  c is the soft-cap of gemma2's
+// attention, c(s) = cap * tanh(s / cap) (tanhf, the accurate libdevice
+// function), or the identity for cap = 0; the cap is a runtime argument.
+// It is applied to kept scores only: the masked sentinel stays the
+// sentinel (tanh(-inf) is -1, so a capped sentinel would keep its key).
+// The JAX model applies it outside its Pallas kernel, in sdpa_chunked and
+// sdpa_decode.  Replaces
 // src/repro/kernels/flash_attention.py::flash_attention, whose Pallas grid
 // walks the KV tiles as its last, sequential axis with (m, l, acc) resident
 // in VMEM.  Here one block owns one (b*h, q-tile) and loops over the KV
@@ -39,6 +45,13 @@
 //     holds 2 rows of each m-tile, row max and row sum reduce over the quad
 //     with two xor shuffles, dh^-0.5 * log2(e) folds into one FMA before the
 //     SFU's ex2, and masks are applied only on tiles that straddle an edge.
+//     With a cap the scale cannot stay folded (tanh is not linear): each
+//     kept score becomes cap * tanhf(s * dh^-0.5 / cap) first, and log2(e)
+//     alone goes into the FMA.  Whether to cap is a template flag, picked
+//     at launch from the runtime cap, so that cap 0 runs the uncapped code
+//     and arithmetic bit for bit; the cap's value stays an argument.  The
+//     mask test stays inside the edge-tile branch: a per-score "kept" flag
+//     evaluated on every tile made the uncapped kernel 10-20% slower.
 //     Masked scores are -inf, so their probabilities are exactly 0, and a
 //     row with no kept key yet is taken against 0 in place of its -inf max;
 //   - O += P V with P packed to bf16 A fragments straight from the score
@@ -61,8 +74,8 @@
 // banks), and each thread owns a 4 x 4 block of scores (rows ty + 16i, keys
 // tx + 16j) and a 4 x (D/16) block of the accumulator (columns tx + 16j).
 // Row max and row sum reduce over the 16 lanes that share a row with xor
-// shuffles; m, l and acc stay in float32 registers; masked scores are
-// -1e30, as in Pallas.
+// shuffles; m, l and acc stay in float32 registers; a kept score is scaled
+// and then capped (cap > 0), a masked one is -1e30, as in Pallas.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -183,12 +196,15 @@ struct Layout {
       (kBQ + 2 * kStages * kBK) * D * static_cast<int>(sizeof(bf16));
 };
 
-template <int D>
+template <int D, bool kCapped>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                  int sk, int heads, int kv_heads, int dh, float scale_log2,
-                  int causal, int window, int vec) {
+                  int sk, int heads, int kv_heads, int dh, float score_log2,
+                  float cap_in, float cap, int causal, int window, int vec) {
+  // score_log2 takes a score as the softmax sees it into log2 units:
+  // dh^-0.5 * log2(e) uncapped, log2(e) after the cap, whose input is the
+  // raw score times cap_in = dh^-0.5 / cap
   using L = Layout<D>;
   constexpr int kMT = L::kMT;
   constexpr int kRows = 16 * kMT;       // query rows a warp
@@ -315,11 +331,16 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j = 0; j < kKeyTiles; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            // the cap touches kept scores only
             if (edge) {
               const int qp = wq0 + 16 * mt + g + 8 * (e >> 1);
               const int kp = k0 + 8 * j + 2 * tq + (e & 1);
               if (!(kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window)))
                 s[mt][j][e] = kMasked;
+              else if (kCapped)
+                s[mt][j][e] = cap * tanhf(s[mt][j][e] * cap_in);
+            } else if (kCapped) {
+              s[mt][j][e] = cap * tanhf(s[mt][j][e] * cap_in);
             }
             mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
           }
@@ -331,7 +352,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float m_new = fmaxf(m[mt][r], mx[r] * scale_log2);
+          const float m_new = fmaxf(m[mt][r], mx[r] * score_log2);
           base_m[r] = m_new == kMasked ? 0.0f : m_new;
           const float alpha = exp2_approx(m[mt][r] - base_m[r]);
           m[mt][r] = m_new;
@@ -346,7 +367,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j = 0; j < kKeyTiles; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float p = exp2_approx(fmaf(s[mt][j][e], scale_log2, -base_m[e >> 1]));
+            const float p = exp2_approx(fmaf(s[mt][j][e], score_log2, -base_m[e >> 1]));
             s[mt][j][e] = p;
             l[mt][e >> 1] += p;
           }
@@ -420,36 +441,48 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kCapped>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, float cap, cudaStream_t stream) {
   using L = Layout<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, kCapped>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::kSmem);
   if (err != cudaSuccess) return err;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   const int vec = dh % 8 == 0 && any % 16 == 0;
   const dim3 grid(b * heads, (sq + L::kBQ - 1) / L::kBQ);
-  flash_bf16_kernel<D><<<grid, kThreads, L::kSmem, stream>>>(
+  flash_bf16_kernel<D, kCapped><<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, heads, kv_heads, dh, scale * kLog2e, causal, window,
-      vec);
+      static_cast<bf16*>(o), sq, sk, heads, kv_heads, dh, kCapped ? kLog2e : scale * kLog2e,
+      kCapped ? scale / cap : 0.0f, cap, causal, window, vec);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_cap(const void* q, const void* k, const void* v, void* o, int b,
+                       int sq, int sk, int heads, int kv_heads, int dh, float scale,
+                       int causal, int window, float cap, cudaStream_t stream) {
+  if (cap > 0.0f)
+    return launch<D, true>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                           window, cap, stream);
+  return launch<D, false>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                          window, cap, stream);
 }
 
 cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int b,
                       int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      int causal, int window, float cap, cudaStream_t stream) {
   if (dh <= 64)
-    return launch<64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
-                      stream);
+    return launch_cap<64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                          window, cap, stream);
   if (dh <= 128)
-    return launch<128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
-                       stream);
-  return launch<256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal, window,
-                     stream);
+    return launch_cap<128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                           window, cap, stream);
+  return launch_cap<256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+                         window, cap, stream);
 }
 
 }  // namespace tc
@@ -503,7 +536,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
              int heads, int kv_heads, int dh, float scale, int causal,
-             int window) {
+             int window, float cap) {
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D + 1]
@@ -576,7 +609,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
         keep[j] = kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-        s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
+        float x = s[i][j] * scale;
+        if (cap > 0.0f) x = cap * tanhf(x / cap);
+        s[i][j] = keep[j] ? x : kNegInf;
         row_max = fmaxf(row_max, s[i][j]);
       }
       const float m_new = fmaxf(m[i], reduce16_max(row_max));
@@ -625,7 +660,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, float cap, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -633,22 +668,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * heads, (sq + kBQ - 1) / kBQ);
   flash_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, heads, kv_heads, dh, scale, causal, window);
+      static_cast<T*>(o), sq, sk, heads, kv_heads, dh, scale, causal, window, cap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int b,
                       int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      int causal, int window, float cap, cudaStream_t stream) {
   if (dh <= 64)
     return launch<T, 64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                         window, stream);
+                         window, cap, stream);
   if (dh <= 128)
     return launch<T, 128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                          window, stream);
+                          window, cap, stream);
   return launch<T, 256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                        window, stream);
+                        window, cap, stream);
 }
 
 }  // namespace f32
@@ -657,18 +692,18 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int 
 
 // q, o: [b, sq, heads, dh]; k, v: [b, sk, kv_heads, dh], all contiguous, of
 // float32 (is_bf16 = 0: CUDA cores) or bfloat16 (is_bf16 = 1: tensor
-// cores); dh <= 256; heads a multiple of kv_heads; window <= 0 means none.
-// Returns the CUDA error.
+// cores); dh <= 256; heads a multiple of kv_heads; window <= 0 means none;
+// softcap <= 0 means none.  Returns the CUDA error.
 extern "C" int flash_attention(void* o, const void* q, const void* k, const void* v,
                                int b, int sq, int sk, int heads, int kv_heads,
                                int dh, float scale, int causal, int window,
-                               int is_bf16, void* stream) {
+                               float softcap, int is_bf16, void* stream) {
   if (b <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? tc::launch_dh(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                              window, s)
+                              window, softcap, s)
               : f32::launch_dh<float>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale,
-                                      causal, window, s);
+                                      causal, window, softcap, s);
   return static_cast<int>(err);
 }

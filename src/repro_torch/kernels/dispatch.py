@@ -99,10 +99,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention forward q [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> [B, Sq, H, dh]
-    with positions by index (causal, sliding ``window``, GQA by index)."""
+    with positions by index (causal, sliding ``window``, GQA by index) and
+    the scaled scores soft-capped at ``softcap`` (0 = none)."""
     if not _on_cuda(q):
-        if softcap:
-            raise ValueError("flash_attention has no logit soft-capping")
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
     return _flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                        causal=causal, window=window, softcap=softcap)

@@ -24,7 +24,7 @@ MAX_HEAD_DIM = 256
 def _entry():
     fn = _build.load("flash_attention").flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -36,14 +36,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Sk, KV, dh] -> [B, Sq, H, dh] in q's dtype, scale dh^-0.5.
 
     Query and key positions are their indices; ``window`` > 0 keeps keys
-    j > i - window; head j reads KV head j // (H / KV).  All three tensors
-    float32|bfloat16 of one dtype, contiguous, on one CUDA device; dh <= 256.
-    Raises for ``softcap`` != 0 (the Pallas kernel has none either), on any
-    other input, and if the launch fails.  bfloat16 runs on the tensor
-    cores and rounds the probabilities to bf16 before P @ V; float32 runs
-    in float32 throughout."""
-    if softcap:
-        raise ValueError("flash_attention has no logit soft-capping")
+    j > i - window; head j reads KV head j // (H / KV).  A ``softcap`` > 0
+    maps each kept scaled score s to softcap * tanh(s / softcap) (tanhf)
+    before the softmax, as the JAX model does (the Pallas kernel has no
+    cap); the cap is a runtime argument.  All three tensors float32|bfloat16
+    of one dtype, contiguous, on one CUDA device; dh <= 256.  Raises on any
+    other input, a negative cap, and if the launch fails.  bfloat16 runs on
+    the tensor cores and rounds the probabilities to bf16 before P @ V;
+    float32 runs in float32 throughout."""
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA tensors, got {q.device}")
     if q.dtype not in _IS_BF16:
@@ -70,7 +72,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     err = _entry()(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    b, sq, sk, h, kvh, dh, dh ** -0.5, int(causal), int(window),
-                   _IS_BF16[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+                   float(softcap), _IS_BF16[q.dtype],
+                   torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -108,17 +108,22 @@ def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Dense-softmax attention in float32, the semantics of the flash kernel.
 
     q [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> [B, Sq, H, dh] in q's dtype;
     scale dh^-0.5; query and key positions are their indices; head j reads
-    KV head j // (H / KV)."""
+    KV head j // (H / KV).  A nonzero ``softcap`` maps the scaled scores s
+    to softcap * tanh(s / softcap) before the mask, as the JAX model's
+    ``_sdpa_block`` does."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     kk = k.repeat_interleave(h // kvh, dim=2)
     vv = v.repeat_interleave(h // kvh, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * dh ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(sk, device=q.device)[None, :]
     keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

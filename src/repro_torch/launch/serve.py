@@ -1,12 +1,15 @@
 """Serving launcher: continuous-batching greedy decode of random-init
 weights (a throughput and machinery demo).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch moonshot-v1-16b-a3b --device cpu
+        --arch deepseek-v2-lite-16b --full
 
 The CLI of ``repro.launch.serve`` plus ``--device`` (default ``cuda``,
-which raises without a CUDA device).  The default arch is the one the port
-has; checkpoints (``--ckpt``) are not ported yet.
+which raises without a CUDA device).  ``--arch`` takes any config the port
+has (``repro_torch.configs.ARCH_IDS`` or a dashed alias; default
+llama3.2-3b, as in the JAX CLI); ``--full`` serves its full-size config,
+else its REDUCED one.  Checkpoints (``--ckpt``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.serve.engine import DecodeEngine, Request
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
+    ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--full", action="store_true",
                     help="full config (default: REDUCED, CPU-scale)")
     ap.add_argument("--requests", type=int, default=8)

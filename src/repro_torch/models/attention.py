@@ -1,5 +1,5 @@
-"""Attention: GQA + RoPE + optional sliding window, a full-sequence path and
-a KV-cache decode path (with logit soft-capping).
+"""Attention: GQA + RoPE + optional sliding window and attention-logit
+soft-capping, a full-sequence path and a KV-cache decode path.
 
 The PyTorch counterpart of ``repro/models/attention.py`` (self-attention
 only: cross-attention belongs to the encoder-decoder family, not ported).
@@ -7,7 +7,8 @@ Layout: activations [B, S, D], heads [B, S, H, dh].  The full-sequence
 ``attention`` goes through ``dispatch.flash_attention``, so the tensor's
 device decides: the hand-written flash kernel on a CUDA tensor, its plain
 version on a CPU tensor (tests/test_torch_attention.py holds that against
-the JAX package's ``sdpa_chunked``).
+the JAX package's ``sdpa_chunked``).  Both soft-cap the scaled scores
+inside the kernel, as the JAX model does in ``sdpa_chunked``.
 """
 from __future__ import annotations
 
@@ -74,8 +75,8 @@ def attention(params, x, *, num_heads, num_kv, head_dim, rope_theta=10000.0,
     """Full-sequence self-attention (prefill) over positions 0..S-1.
 
     x: [B, S, D] -> [B, S, D] through ``dispatch.flash_attention``, whose
-    masks take positions as indices.  A nonzero ``softcap_val`` raises
-    there: the flash kernel has no logit soft-capping."""
+    masks take positions as indices and which soft-caps the scaled scores
+    at ``softcap_val`` (0 = none)."""
     cd = compute_dtype or x.dtype
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     q = _project(x, params["wq"], cd)

@@ -18,6 +18,9 @@ layer and per call:
   5. merger: the gate-weighted combine sums slot outputs per token.
 
 Dropped tokens pass through the residual (capacity-factor semantics).
+``place_slot_weights`` fixes a plan ahead of the call (the paper's SecPE
+re-enqueue by the CPU): the expert weights are copied once per slot, and
+``moe_apply`` on such params follows that plan instead of the batch's.
 """
 from __future__ import annotations
 
@@ -60,6 +63,35 @@ def _plan_from_hist(hist: torch.Tensor, num_experts: int, num_sec: int):
     return plan, slot_expert
 
 
+def place_slot_weights(params, assignment: torch.Tensor, num_experts: int,
+                       *, pad_to: int = 16, dtype=None):
+    """Ditto slot-weight placement: the expert weights copied once per slot
+    of the plan ``assignment`` [X] (the expert each secondary slot serves,
+    -1 = none), so that a call stops selecting weights per slot.
+
+    Returns a params dict whose ``up``/``gate``/``down`` are replaced by
+    ``up_slots`` [S_pad, d, f], ``gate_slots``, ``down_slots`` and
+    ``slot_assignment`` (the plan the mapper must follow); S_pad rounds
+    E + X up to a multiple of ``pad_to``, and the padding slots hold expert
+    0's weights and receive no token."""
+    num_sec = int(assignment.shape[0])
+    slots = num_experts + num_sec
+    s_pad = -(-slots // pad_to) * pad_to
+    dev = params["up"].device
+    assignment = assignment.to(dev)
+    slot_expert = torch.cat([
+        torch.arange(num_experts, dtype=torch.int32, device=dev),
+        torch.where(assignment >= 0, assignment, 0).to(torch.int32),
+        torch.zeros((s_pad - slots,), dtype=torch.int32, device=dev)]).long()
+    dt = dtype or params["up"].dtype
+    out = dict(params)
+    for name in ("up", "gate", "down"):
+        out[f"{name}_slots"] = params[name].index_select(0, slot_expert).to(dt)
+        out.pop(name)
+    out["slot_assignment"] = assignment.to(torch.int32)
+    return out
+
+
 def uniform_capacity(tokens_per_group: int, top_k: int, num_experts: int,
                      capacity_factor: float) -> int:
     """Per-slot-per-group capacity sized for the *uniform* load -- with
@@ -75,7 +107,9 @@ def moe_apply(params, x, *, num_experts, top_k, capacity_factor: float = 1.25,
 
     Tokens regroup into dispatch groups of ``group_size`` tokens; capacity
     is per slot per group, sized for the uniform load unless given.
-    ``num_secondary`` = X replica slots (0 = plain MoE).  aux carries the
+    ``num_secondary`` = X replica slots (0 = plain MoE).  Params from
+    ``place_slot_weights`` carry the plan and the per-slot weights: the
+    call follows that plan over their S_pad slots.  aux carries the
     load-balance loss and the Ditto diagnostics of the JAX version."""
     cd = compute_dtype or x.dtype
     b, s, d = x.shape
@@ -87,7 +121,9 @@ def moe_apply(params, x, *, num_experts, top_k, capacity_factor: float = 1.25,
     if capacity is None:
         capacity = uniform_capacity(n, top_k, num_experts, capacity_factor)
     nk = n * top_k
-    num_slots = num_experts + num_secondary
+    placed = "up_slots" in params     # plan-time slot-weight placement
+    num_slots = (params["up_slots"].shape[0] if placed
+                 else num_experts + num_secondary)
 
     logits = x.reshape(-1, d).float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)                            # [B*S, E]
@@ -101,8 +137,15 @@ def moe_apply(params, x, *, num_experts, top_k, capacity_factor: float = 1.25,
     hist = torch.bincount(designated.reshape(-1).long(),
                           minlength=num_experts).to(torch.int32)
     if num_secondary > 0:
-        # 2.-3. one shared plan; per-group round-robin redirect
-        plan, slot_expert = _plan_from_hist(hist, num_experts, num_secondary)
+        if placed:
+            # the plan was fixed at placement: the mapper follows it
+            plan = core_mapper.apply_schedule(
+                core_mapper.init_plan(num_experts, num_secondary, x.device),
+                params["slot_assignment"])
+        else:
+            # 2.-3. one shared plan from this batch's histogram
+            plan, slot_expert = _plan_from_hist(hist, num_experts, num_secondary)
+        # per-group round-robin redirect
         rank = kernel_ops.occurrence_rank(designated, num_experts)
         eff = core_mapper.redirect(plan, designated, rank)           # [G, n*k]
     else:
@@ -116,11 +159,16 @@ def moe_apply(params, x, *, num_experts, top_k, capacity_factor: float = 1.25,
     packed = K.onehot_dispatch(eff, slot_rank, xin, num_slots, capacity)
 
     # expert compute; a secondary slot takes its expert's weights (the
-    # JAX version's one-hot einsum over the expert axis selects the same)
-    idx = slot_expert.long()
-    w_up = params["up"].to(cd).index_select(0, idx)
-    w_gate = params["gate"].to(cd).index_select(0, idx)
-    w_down = params["down"].to(cd).index_select(0, idx)
+    # JAX version's one-hot einsum over the expert axis selects the same),
+    # or the weights were placed per slot ahead of the call
+    if placed:
+        w_up, w_gate, w_down = (params[f"{name}_slots"].to(cd)
+                                for name in ("up", "gate", "down"))
+    else:
+        idx = slot_expert.long()
+        w_up = params["up"].to(cd).index_select(0, idx)
+        w_gate = params["gate"].to(cd).index_select(0, idx)
+        w_down = params["down"].to(cd).index_select(0, idx)
     h = torch.einsum("gecd,edf->gecf", packed, w_up)
     h = h * F.silu(torch.einsum("gecd,edf->gecf", packed, w_gate))
     out_slots = torch.einsum("gecf,efd->gecd", h, w_down)            # [G,S_,C,D]

@@ -4,8 +4,9 @@ pattern of ``ArchConfig``), in the parameter layout of
 the cache is stacked over periods on a leading axis.  A Python loop over
 periods takes the place of the JAX ``lax.scan``.
 
-This slice covers the mixer kinds ``attn``, ``attn_local`` and
-``attn_nocausal`` and the FFN kinds ``dense`` and ``moe``.
+It covers the mixer kinds ``attn``, ``attn_local``, ``attn_nocausal`` and
+``mla`` and the FFN kinds ``dense`` and ``moe``: every family but the SSM,
+hybrid, encoder-decoder and VLM ones.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
@@ -23,13 +25,13 @@ ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
 
 def _unported(what: str, kind: str):
     return NotImplementedError(
-        f"{what} kind {kind!r} is not ported yet (ROADMAP.md §1: MLA, Mamba2, "
+        f"{what} kind {kind!r} is not ported yet (ROADMAP.md §1: Mamba2, "
         "Whisper and the VLM frontends come in later slices)")
 
 
 def _check_kinds(cfg: ArchConfig):
     for mk, fk in zip(cfg.block_pattern, cfg.ffn_pattern):
-        if mk not in ATTN_KINDS:
+        if mk not in (*ATTN_KINDS, "mla"):
             raise _unported("mixer", mk)
         if fk not in ("dense", "moe"):
             raise _unported("ffn", fk)
@@ -61,13 +63,21 @@ def _stack(trees):
 
 # ------------------------------------------------------------------ params
 
+def _mixer_params(cfg: ArchConfig, kind: str, gen: torch.Generator):
+    if kind == "mla":
+        return MLA.mla_params(gen, cfg.d_model, cfg.num_heads, cfg.kv_lora_rank,
+                              cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                              cfg.pdtype)
+    return A.attn_params(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim, cfg.pdtype)
+
+
 def period_params(cfg: ArchConfig, gen: torch.Generator):
     """Parameters of ONE period (stacked over periods by init_params)."""
     p = {}
     for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         p[f"{j}.norm1"] = L.rmsnorm_params(cfg.d_model, gen.device)
-        p[f"{j}.mixer"] = A.attn_params(gen, cfg.d_model, cfg.num_heads,
-                                        cfg.num_kv_heads, cfg.head_dim, cfg.pdtype)
+        p[f"{j}.mixer"] = _mixer_params(cfg, mk, gen)
         p[f"{j}.norm2"] = L.rmsnorm_params(cfg.d_model, gen.device)
         if fk == "dense":
             p[f"{j}.ffn"] = L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
@@ -92,6 +102,21 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
 
 # ----------------------------------------------------------------- forward
 
+def _apply_mixer(cfg: ArchConfig, kind: str, pp, x):
+    cd = cfg.cdtype
+    if kind == "mla":
+        return MLA.mla_attention(
+            pp, x, num_heads=cfg.num_heads, qk_nope=cfg.qk_nope_dim,
+            qk_rope=cfg.qk_rope_dim, v_head=cfg.v_head_dim,
+            rope_theta=cfg.rope_theta, compute_dtype=cd)
+    return A.attention(
+        pp, x, num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        causal=(kind != "attn_nocausal"),
+        window=cfg.window if kind == "attn_local" else None,
+        softcap_val=cfg.attn_softcap, compute_dtype=cd, rope=cfg.use_rope)
+
+
 def _apply_ffn(cfg: ArchConfig, kind: str, pp, x):
     cd = cfg.cdtype
     if kind == "dense":
@@ -113,19 +138,13 @@ def forward(cfg: ArchConfig, params, tokens):
     """tokens [B, S] -> (logits [B, S, V], {"lb_loss"}): the full causal
     forward of prefill."""
     _check_kinds(cfg)
-    cd = cfg.cdtype
-    x = L.embed_lookup(params["embed"], tokens, cd)
+    x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
     lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_periods):
         pp = take(params["blocks"], i)
         for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
             h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
-            x = x + A.attention(
-                pp[f"{j}.mixer"], h, num_heads=cfg.num_heads,
-                num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                rope_theta=cfg.rope_theta, causal=(mk != "attn_nocausal"),
-                window=cfg.window if mk == "attn_local" else None,
-                softcap_val=cfg.attn_softcap, compute_dtype=cd, rope=cfg.use_rope)
+            x = x + _apply_mixer(cfg, mk, pp[f"{j}.mixer"], h)
             h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
             y, aux = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
             x = x + y
@@ -137,17 +156,22 @@ def forward(cfg: ArchConfig, params, tokens):
 # ------------------------------------------------------------------ decode
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict[str, Any]:
-    """Per-period KV caches, {str(j): KVCache} with leaves
-    [num_periods, batch, len, num_kv, head_dim]; local layers keep only
-    their window."""
+    """Per-period caches, {str(j): KVCache | MLACache} with leaves
+    [num_periods, batch, len, ...]; local layers keep only their window,
+    MLA layers the latent and the rope key."""
     _check_kinds(cfg)
+    n = cfg.num_periods * batch
     caches = {}
     for j, mk in enumerate(cfg.block_pattern):
-        ln = min(max_len, cfg.window) if mk == "attn_local" else max_len
-        kv = A.init_kv_cache(cfg.num_periods * batch, ln, cfg.num_kv_heads,
-                             cfg.head_dim, cfg.cdtype, device)
-        caches[str(j)] = A.KVCache(*(t.view(cfg.num_periods, batch, *t.shape[1:])
-                                     for t in kv))
+        if mk == "mla":
+            c = MLA.init_mla_cache(n, max_len, cfg.kv_lora_rank, cfg.qk_rope_dim,
+                                   cfg.cdtype, device)
+        else:
+            ln = min(max_len, cfg.window) if mk == "attn_local" else max_len
+            c = A.init_kv_cache(n, ln, cfg.num_kv_heads, cfg.head_dim, cfg.cdtype,
+                                device)
+        caches[str(j)] = type(c)(*(t.view(cfg.num_periods, batch, *t.shape[1:])
+                                   for t in c))
     return caches
 
 
@@ -162,13 +186,20 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
         pp = take(params["blocks"], i)
         for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
             h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
-            y, _ = A.attention_decode(
-                pp[f"{j}.mixer"], h, take(cache[str(j)], i), cache_len,
-                num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                window=cfg.window if mk == "attn_local" else None,
-                softcap_val=cfg.attn_softcap, compute_dtype=cd,
-                rope=cfg.use_rope, ring=(mk == "attn_local"))
+            if mk == "mla":
+                y, _ = MLA.mla_decode(
+                    pp[f"{j}.mixer"], h, take(cache[str(j)], i), cache_len,
+                    num_heads=cfg.num_heads, qk_nope=cfg.qk_nope_dim,
+                    qk_rope=cfg.qk_rope_dim, v_head=cfg.v_head_dim,
+                    rope_theta=cfg.rope_theta, compute_dtype=cd)
+            else:
+                y, _ = A.attention_decode(
+                    pp[f"{j}.mixer"], h, take(cache[str(j)], i), cache_len,
+                    num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                    window=cfg.window if mk == "attn_local" else None,
+                    softcap_val=cfg.attn_softcap, compute_dtype=cd,
+                    rope=cfg.use_rope, ring=(mk == "attn_local"))
             x = x + y
             h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
             y, _ = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)

@@ -1,9 +1,10 @@
 """The model zoo: one API over the architectures the port runs.
 
 ``build(cfg, device=...)`` returns a ``Model`` whose members are plain
-functions, the inference half of ``repro.models.zoo.Model`` for the
-decoder-only family (training, the whisper family and the sharding specs
-come in later slices, ROADMAP.md §1).
+functions, the inference half of ``repro.models.zoo.Model`` for the dense
+and MoE decoders (attention and MLA mixers).  Training, the SSM, hybrid,
+whisper and VLM families and the sharding specs come in later slices
+(ROADMAP.md §1).
 
 Batch layouts (dicts of tensors on the model's device):
   prefill {"tokens" [B, S] int}

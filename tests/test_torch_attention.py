@@ -4,9 +4,10 @@ The plain flash attention (``repro_torch.kernels.ref``, reached through
 ``dispatch`` for CPU tensors, the CPU path of the model's ``attention``)
 against ``repro.kernels.ref.flash_attention`` at the shapes of
 tests/test_kernels.py plus a window case, and against the JAX model's
-``sdpa_chunked``; then the model's ``attention`` and ``attention_decode``
-(per-slot lengths, the ring buffer) against ``repro.models.attention`` on
-the same weights and inputs.
+``sdpa_chunked``, soft-capped too (gemma2's cap of 50, with GQA and a
+window); then the model's ``attention`` (soft-capped at 30 too) and
+``attention_decode`` (per-slot lengths, the ring buffer) against
+``repro.models.attention`` on the same weights and inputs.
 Tolerances: 1e-5 in float32 (sums in another order), 2e-2 in bfloat16,
 as in tests/test_kernels.py.
 """
@@ -67,10 +68,23 @@ def test_plain_flash_equals_sdpa_chunked(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_flash_softcap_raises():
-    q, k, v = map(torch.from_numpy, _qkv(3, 1, 8, 8, 2, 2, 8))
-    with pytest.raises(ValueError, match="soft-capping"):
-        dispatch.flash_attention(q, k, v, softcap=50.0)
+@pytest.mark.parametrize("q_scale", [1, 8])
+@pytest.mark.parametrize("window", [None, 8])
+def test_plain_flash_softcap_equals_sdpa_chunked(window, q_scale):
+    """gemma2's cap of 50 with GQA (4 heads over 2), with and without a
+    window; q scaled by 8 puts scores where the cap bends them."""
+    q, k, v = _qkv(5, 2, 40, 40, 4, 2, 16)
+    q = q * q_scale
+    pos = jnp.arange(40)
+    got = dispatch.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window or 0,
+                                   softcap=50.0)
+    want = jattn.sdpa_chunked(*map(jnp.asarray, (q, k, v)), q_pos=pos, k_pos=pos,
+                              window=window, softcap_val=50.0, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    if q_scale == 8:      # the cap moved the answer
+        uncapped = dispatch.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                            window=window or 0)
+        assert float((uncapped - got).abs().max()) > 1e-3
 
 
 def _params(seed, d, h, kv, dh):
@@ -81,17 +95,13 @@ def _params(seed, d, h, kv, dh):
 @pytest.mark.parametrize("window,softcap", [(None, 0.0), (8, 0.0), (None, 30.0)])
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)])
 def test_attention_vs_jax(h, kv, window, softcap):
-    """A nonzero soft-cap raises on every device, as the flash kernel has
-    none; no ported config sets one."""
+    """A nonzero soft-cap goes into the flash attention, as JAX's goes into
+    ``sdpa_chunked`` (gemma2-2b sets one)."""
     d, dh, s = 64, 16, 40
     jp, tp = _params(h + kv, d, h, kv, dh)
     x = np.random.default_rng(4).standard_normal((2, s, d)).astype(np.float32)
     kw = dict(num_heads=h, num_kv=kv, head_dim=dh, rope_theta=50000.0,
               window=window, softcap_val=softcap)
-    if softcap:
-        with pytest.raises(ValueError, match="soft-capping"):
-            attn.attention(tp, torch.from_numpy(x), **kw)
-        return
     want = jattn.attention(jp, jnp.asarray(x), positions=jnp.arange(s),
                            q_chunk=16, kv_chunk=16, **kw)
     got = attn.attention(tp, torch.from_numpy(x), **kw)

@@ -1,0 +1,61 @@
+"""The port's architecture configs and its serve CLI, on the CPU.
+
+Each of the port's configs, CONFIG and REDUCED, equals the JAX package's
+on every field the port's ``ArchConfig`` has; the registry resolves the
+dashed names and refuses the configs whose model code is not ported; and
+``python -m repro_torch.launch.serve --device cpu`` with the default arch
+(llama3.2-3b, the JAX CLI's default) serves every request.
+"""
+import dataclasses
+import importlib
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro import configs as jconfigs
+from repro_torch import configs
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "REDUCED"])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_config_equals_jax(arch, which):
+    got = getattr(importlib.import_module(f"repro_torch.configs.{arch}"), which)
+    want = getattr(importlib.import_module(f"repro.configs.{arch}"), which)
+    for field in dataclasses.fields(got):
+        assert getattr(got, field.name) == getattr(want, field.name), field.name
+    assert got.cdtype.itemsize == want.cdtype.itemsize
+
+
+def test_registry_resolves_the_jax_aliases():
+    for alias, arch in jconfigs.ALIASES.items():
+        if arch in configs.ARCH_IDS:
+            assert configs.resolve(alias) == arch
+            assert configs.get(alias) == importlib.import_module(
+                f"repro_torch.configs.{arch}").CONFIG
+        else:
+            with pytest.raises(NotImplementedError, match="no config"):
+                configs.get_reduced(alias)
+
+
+def test_serve_cli_default_arch_serves_every_request():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "served 8 requests / 128 tokens" in proc.stdout, proc.stdout
+
+
+def test_serve_cli_default_arch_is_llama(monkeypatch, capsys):
+    from repro_torch.launch import serve
+    asked = []
+    real = serve.get_reduced
+    monkeypatch.setattr(serve, "get_reduced", lambda name: asked.append(name) or real(name))
+    serve.main(["--device", "cpu", "--requests", "1", "--max-new", "2"])
+    assert asked == ["llama3.2-3b"]
+    assert "served 1 requests / 2 tokens" in capsys.readouterr().out

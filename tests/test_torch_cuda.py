@@ -389,6 +389,42 @@ def test_flash_attention_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal, win
     _close(got, want, dtype, exact=False)
 
 
+# b, sq, sk, h, kv, dh, causal, window, q_scale: gemma2's shape (8 heads
+# over 4, dh 256, its local window), MLA's head dim 192, the other head
+# dims, one query, and q x 8 (scores where the cap bends them)
+FLASH_CAP_CASES = [
+    (2, 1024, 1024, 8, 4, 256, True, 0, 1),
+    (1, 600, 600, 8, 4, 256, True, 256, 8),
+    *((2, 256, 256, 4, 2, dh, True, 0, 8) for dh in (64, 128, 192, 256)),
+    *((2, 300, 300, 4, 2, dh, True, 40, 1) for dh in (64, 128, 192, 256)),
+    (2, 1, 1, 4, 2, 128, True, 0, 8),
+    (2, 130, 130, 4, 4, 64, False, 0, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,q_scale", FLASH_CAP_CASES)
+def test_flash_attention_softcap_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal,
+                                          window, q_scale, dtype):
+    """gemma2's attention soft-cap of 50 inside the kernel, in both of its
+    bodies, against the plain version; the causal first row reads key 0
+    alone, so a sentinel that the cap had turned into -50 would show there
+    (and at every window's edge)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + h + kv + dh + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    q, k, v = ((q * q_scale).to(FLOATS[dtype]), k.to(FLOATS[dtype]), v.to(FLOATS[dtype]))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window, softcap=50.0)
+    before = flash_attention.launches
+    got = dispatch.flash_attention(q, k, v, causal=causal, window=window, softcap=50.0)
+    assert flash_attention.launches == before + 1
+    _close(got, want, dtype, exact=False)
+    if causal:
+        first = v[:, :1].repeat_interleave(h // kv, dim=2)
+        _close(got[:, :1], first, dtype, exact=False)
+
+
 @pytest.mark.cuda
 def test_flash_attention_noncausal_vs_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -422,8 +458,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         flash_attention(q.cpu(), q.cpu(), q.cpu())
     with pytest.raises(ValueError, match="dh <= 256"):
         flash_attention(*(torch.zeros((1, 8, 2, 272), device=cuda_device),) * 3)
-    with pytest.raises(ValueError, match="soft-capping"):
-        flash_attention(q, q, q, softcap=30.0)
+    with pytest.raises(ValueError, match="softcap"):
+        flash_attention(q, q, q, softcap=-30.0)
     assert before == (onehot_dispatch.launches, onehot_combine.launches,
                       flash_attention.launches)
 
@@ -434,7 +470,6 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
     the MoE LM's prefill and decode still run on CUDA tensors: a CUDA
     tensor goes to a kernel or nowhere."""
     from repro_torch.configs import get_reduced
-    from repro_torch.models import zoo
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
@@ -442,18 +477,73 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
     for name in ("pe_buffer_update", "cms_update", "onehot_dispatch",
                  "onehot_combine", "flash_attention"):
         monkeypatch.setattr(ref, name, refuse)
-    model = zoo.build(get_reduced("moonshot-v1-16b-a3b"), device=cuda_device)
+    assert _lm_launches(get_reduced("moonshot-v1-16b-a3b"), cuda_device) == (2, 2, 1)
+
+
+def _lm_launches(cfg, device):
+    """One prefill and one decode step of ``cfg`` at random weights on the
+    card; each kernel's launches over them, a layer."""
+    from repro_torch.models import zoo
+    model = zoo.build(cfg, device=device)
     params = model.init_params(model.generator(0))
-    tokens = torch.randint(0, 256, (2, 64), device=cuda_device)
+    tokens = torch.randint(0, 256, (2, 64), device=device)
     counts = (onehot_dispatch.launches, onehot_combine.launches, flash_attention.launches)
     logits = model.prefill_fn(params, {"tokens": tokens})
     cache = model.init_cache(params, 2, 8)
     model.decode_fn(params, {"tokens": tokens[:, :1], "cache": cache, "cache_len": 0})
     torch.cuda.synchronize()
     assert torch.isfinite(logits).all()
-    layers = model.cfg.num_layers
-    assert (onehot_dispatch.launches - counts[0], onehot_combine.launches - counts[1],
-            flash_attention.launches - counts[2]) == (2 * layers, 2 * layers, layers)
+    layers = cfg.num_layers
+    return ((onehot_dispatch.launches - counts[0]) / layers,
+            (onehot_combine.launches - counts[1]) / layers,
+            (flash_attention.launches - counts[2]) / layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "gemma2-2b", "llama3.2-3b",
+                                  "yi-6b", "starcoder2-15b"])
+def test_lm_configs_never_reach_a_plain_version(cuda_device, monkeypatch, arch):
+    """The other REDUCED configs as moonshot's above, in bfloat16: MLA's
+    prefill and gemma2's soft-capped local and global layers launch the
+    flash kernel once a layer, deepseek's MoE the pack and unpack once a
+    layer a call."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("onehot_dispatch", "onehot_combine", "flash_attention"):
+        monkeypatch.setattr(ref, name, refuse)
+    cfg = dataclasses.replace(get_reduced(arch), compute_dtype="bfloat16")
+    moe = cfg.family == "moe"
+    assert _lm_launches(cfg, cuda_device) == (2 * moe, 2 * moe, 1)
+
+
+@pytest.mark.cuda
+def test_placed_moe_apply_on_card_matches_cpu(cuda_device):
+    """deepseek's reduced MoE with weights placed for a plan (pad_to 16:
+    16 slots for 8 + 4): the card's pack and unpack at P = 16 against the
+    CPU's plain versions, float32."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_to
+    cfg = get_reduced("deepseek-v2-lite-16b")
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_params(gen, cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                            num_shared=cfg.num_shared_experts,
+                            shared_d_ff=cfg.shared_d_ff)
+    placed = moe.place_slot_weights(params, torch.tensor([0, 3, 0, -1]),
+                                    cfg.num_experts)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+              num_secondary=cfg.ditto_secondary, group_size=cfg.moe_group_size)
+    want, _ = moe.moe_apply(placed, x, **kw)
+    on_card = tree_to(placed, cuda_device)
+    before = onehot_dispatch.launches
+    got, _ = moe.moe_apply(on_card, x.to(cuda_device), **kw)
+    assert onehot_dispatch.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,10 @@
 The plain dispatch/combine (``repro_torch.kernels.ref``, reached through
 ``dispatch`` for CPU tensors) against ``repro.kernels.ref`` applied per
 group, and against the Pallas kernels in interpret mode at one tiny shape;
-``occurrence_rank``; and ``moe_apply`` on the reduced moonshot config
-against the JAX ``moe_apply`` under ``moe_impl`` "onehot" and "kernel".
+``occurrence_rank``; ``moe_apply`` on the reduced moonshot config
+against the JAX ``moe_apply`` under ``moe_impl`` "onehot" and "kernel";
+and ``place_slot_weights`` (identical placed tensors) with the placed
+``moe_apply`` against JAX's placed call and the port's live path (1e-5).
 Inputs come from numpy with a seed.  Unique cells must match exactly
 (a one-hot product adds one nonzero term); duplicates and the MoE output
 use rtol = atol = 1e-4 in float32 (sums in another order).
@@ -151,3 +153,64 @@ def test_moe_apply_ditto_balances_skew():
     _, aux = moe.moe_apply(params, x, num_experts=cfg.num_experts, top_k=cfg.top_k,
                            num_secondary=4, group_size=cfg.moe_group_size)
     assert int(aux["max_slot_load"]) < int(aux["max_designated_load"])
+
+
+def _placement_case():
+    """tests/test_opt_variants.py's placement case (8 experts top-2, X = 3,
+    1 shared, group 64, two groups) in both packages: JAX's weights and
+    input, the plan the live path derives from the batch's histogram,
+    placed with pad_to = 4 (S_pad = 12 slots)."""
+    from repro.core.scheduler import schedule_secpes
+    e, k, d, ff, x_sec = 8, 2, 32, 64, 3
+    k1, k2 = jax.random.split(jax.random.PRNGKey(7))
+    jparams = jmoe.moe_params(k1, d, ff, e, num_shared=1, shared_d_ff=64)
+    x = np.array(jax.random.normal(k2, (2, 64, d)))
+    ids = jax.lax.top_k(jax.nn.softmax(jnp.asarray(x).reshape(-1, d) @ jparams["router"],
+                                       -1), k)[1]
+    assignment = schedule_secpes(jnp.sum(jax.nn.one_hot(ids, e, dtype=jnp.int32),
+                                         axis=(0, 1)), x_sec)
+    kw = dict(num_experts=e, top_k=k, num_secondary=x_sec, group_size=64)
+    return jparams, x, np.array(assignment), kw
+
+
+def test_place_slot_weights_vs_jax():
+    jparams, _, assignment, kw = _placement_case()
+    want = jmoe.place_slot_weights(jparams, jnp.asarray(assignment), kw["num_experts"],
+                                   pad_to=4)
+    params = tree_from_numpy(jax.tree.map(np.asarray, jparams), torch.device("cpu"))
+    got = moe.place_slot_weights(params, torch.from_numpy(assignment), kw["num_experts"],
+                                 pad_to=4)
+    assert set(got) == set(want)
+    assert got["up_slots"].shape[0] == 12
+    for name in ("up_slots", "gate_slots", "down_slots", "slot_assignment"):
+        assert got[name].numpy().dtype == np.asarray(want[name]).dtype, name
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["onehot", "kernel"])
+def test_placed_moe_apply_vs_jax_and_live(impl, monkeypatch):
+    """The placed call against JAX's placed call and against the port's
+    live path on the same batch (whose plan it fixed), within 1e-5; its
+    pack and unpack run at P = S_pad = 12 slots."""
+    jparams, x, assignment, kw = _placement_case()
+    jplaced = jmoe.place_slot_weights(jparams, jnp.asarray(assignment), kw["num_experts"],
+                                      pad_to=4)
+    want_y, want_aux = jmoe.moe_apply(jplaced, jnp.asarray(x), impl=impl, **kw)
+    params = tree_from_numpy(jax.tree.map(np.asarray, jparams), torch.device("cpu"))
+    placed = moe.place_slot_weights(params, torch.from_numpy(assignment),
+                                    kw["num_experts"], pad_to=4)
+    seen = []
+    real = dispatch.onehot_dispatch
+    monkeypatch.setattr(dispatch, "onehot_dispatch",
+                        lambda *a: seen.append(a[3]) or real(*a))
+    y, aux = moe.moe_apply(placed, torch.from_numpy(x), **kw)
+    assert seen == [12]
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-5, atol=1e-5)
+    for key in ("max_designated_load", "max_slot_load"):
+        assert int(aux[key]) == int(want_aux[key]), key
+    np.testing.assert_allclose(float(aux["drop_frac"]), float(want_aux["drop_frac"]),
+                               atol=1e-6)
+    y_live, aux_live = moe.moe_apply(params, torch.from_numpy(x), **kw)
+    np.testing.assert_allclose(y.numpy(), y_live.numpy(), rtol=1e-5, atol=1e-5)
+    assert abs(float(aux["drop_frac"]) - float(aux_live["drop_frac"])) < 1e-6

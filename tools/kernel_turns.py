@@ -14,7 +14,13 @@ inputs made from a seed:
   - ``dispatch.onehot_dispatch`` at moonshot's prefill shape (G = 8,
     T = 3072, 72 slots x 60, D = 2048 bf16) and at its serving-load decode
     shape (G = 1, T = 384, 72 slots x 7), slots by occurrence rank as on the
-    model path, against ``zero_()`` + ``index_put_(accumulate=True)``.
+    model path, against ``zero_()`` + ``index_put_(accumulate=True)``;
+  - ``dispatch.flash_attention`` without a soft-cap at moonshot's prefill
+    shape (B = 4, S = 1024, H = KV = 16, dh = 128) and gemma2's (H 8 / KV 4,
+    dh 256), causal, bf16, against SDPA, and its card time alone; its
+    outputs there and in float32
+    are hashed, and the roots' hashes must agree (``flash_identical``: the
+    uncapped kernel's output bit for bit).
 ``ms`` is a call's time from CUDA events over back-to-back calls;
 ``device_ms`` the card's time of every kernel and memset a call launches,
 from ``chip_smoke.device_ms`` (null where torch.profiler missed launches).
@@ -24,6 +30,7 @@ mean of each number per root (null if any turn's is null).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -78,6 +85,30 @@ def child(root: Path) -> dict:
                      "device_ms": device_ms(fn, ("dispatch_", "Memset"), calls=50,
                                             per_call=per_call),
                      "kept": kept}
+
+    digests = {}
+    for name, (h, kvh, dh) in (("flash_moonshot", (16, 16, 128)),
+                               ("flash_gemma2", (8, 4, 256))):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = (torch.randn((4, 1024, n, dh), generator=gen, device=dev)
+                   for n in (h, kvh, kvh))
+        q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+        for tag, args in (("bfloat16", (q16, k16, v16)), ("float32", (q, k, v))):
+            got = dispatch.flash_attention(*args, causal=True)
+            digests[f"{name}_{tag}"] = hashlib.sha1(
+                got.view(torch.int16 if tag == "bfloat16" else torch.int32)
+                .cpu().numpy().tobytes()).hexdigest()
+        qt = q16.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2) for x in (k16, v16))
+        turns = cuda_ms_turns({
+            "kernel": lambda: dispatch.flash_attention(q16, k16, v16, causal=True),
+            "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)}, iters=50)
+        out[name] = {"ms": turns["kernel"], "library_ms": turns["library"],
+                     "device_ms": device_ms(
+                         lambda: dispatch.flash_attention(q16, k16, v16, causal=True),
+                         "flash_bf16_kernel", calls=50)}
+    out["digests"] = digests
     return out
 
 
@@ -110,9 +141,11 @@ def main(argv: list[str]) -> int:
         return None if None in values else float(np.mean(values))
 
     means = {root: {k: {f: mean([r[k][f] for r in runs]) for f in runs[0][k]}
-                    for k in runs[0] if k != "root"}
+                    for k in runs[0] if k not in ("root", "digests")}
              for root, runs in results.items()}
-    print(json.dumps({"mean": means}))
+    digests = [run["digests"] for runs in results.values() for run in runs]
+    print(json.dumps({"mean": means,
+                      "flash_identical": all(d == digests[0] for d in digests)}))
     return 0
 
 
