@@ -161,7 +161,7 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      first layer's inputs of a prefill run, beside its bound; flash also on
      float32 copies of those inputs (the CUDA-core kernel), and dispatch also
      on the first layer's inputs of a decode step at 64 slots.
-Then the slice's other configs, one model on the card at a time:
+Then the other configs, one model on the card at a time:
   E. (a) the soft-capped flash kernel against its plain version, bf16 and
      float32, one launch each: gemma2's [4, 1024] shape (H 8 / KV 4, dh 256,
      cap 50), one sequence of 5120 with the window of 4096, a window of 256,
@@ -185,7 +185,28 @@ Then the slice's other configs, one model on the card at a time:
      greedy tokens of a 2-request DecodeEngine;
      (f) flash at gemma2's prefill shape with cap 50 and cap 0 and at MLA's,
      beside SDPA without a cap and the bound; prefill tokens/s of each
-     config.  Prints an lm_config line a config and the lm_configs line.
+     config;
+     (g) flash at Jamba's attention shape [1, 1024, 64/8, 128] and phi-3's
+     [1, 2048, 32/32, 96] (dh 96 in the 128 template): held against its
+     plain version in (a), bf16 and float32, and timed beside SDPA and the
+     bound in (f);
+     (h) mamba2-780m at full width and depth (48 layers, the SSD in plain
+     PyTorch, no kernel): prefill_fn on [4, 1024] and [1, 8192], the serve
+     run, decode at serving load (64 busy slots, 32 steps; no kernel
+     launched) and a profile of one prefill and two serving-load steps;
+     (i) jamba-1.5-large-398b at full width, one 8-layer period with 4 of
+     its 16 experts in bfloat16 (top-2 and 4 secondary slots kept; the
+     cuts printed as "reduced"): prefill_fn on [1, 1024] (flash once, the
+     MoE pack and unpack once an MoE layer) and the serve run;
+     (j) phi-3-vision-4.2b at full width and depth: prefill_fn on 1024
+     seeded patches [1, 1024, 1024] + [1, 1024] tokens (logits over 2048
+     positions) and the serve run, text only;
+     (k) mamba2's and phi-3's (with patches) first 2 layers and Jamba's
+     REDUCED config in float32 on the card and the CPU, as (e);
+     (l) a 2-slot DecodeEngine on mamba2's first 2 layers serves 4 requests:
+     each admission's logits equal a fresh-cache prefill's (the SSM state
+     is zeroed at admission).  Prints an lm_config line a config and the
+     lm_configs line.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
 count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14: phase 11's windows
@@ -2369,6 +2390,26 @@ def load_engine(model, params, dev):
     return engine
 
 
+def decode_load(engine) -> dict:
+    """Decode at serving load: two warm steps of ``load_engine``'s engine,
+    then LOAD_STEPS timed steps with every slot busy; ms a step and
+    tokens/s."""
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOAD_STEPS):
+        assert engine.step() == LOAD_SLOTS
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    contexts = engine.slot_len - 2 - LOAD_STEPS
+    return {"slots": LOAD_SLOTS, "max_len": LOAD_MAX_LEN, "steps": LOAD_STEPS,
+            "context_min": int(contexts.min()), "context_max": int(contexts.max()),
+            "context_mean": float(contexts.mean()), "s": load_s,
+            "ms_per_step": 1e3 * load_s / LOAD_STEPS,
+            "tokens_per_s": LOAD_SLOTS * LOAD_STEPS / load_s}
+
+
 def cli_requests(vocab: int) -> list:
     """The requests of repro_torch.launch.serve's run: 8, prompts of 4-16
     tokens (its seed, 0), 16 new tokens each."""
@@ -2440,14 +2481,7 @@ def lm_path(dev):
     smoke["decode_fn_calls"] = calls[0]
     # decode at serving load: LOAD_SLOTS busy slots with long contexts
     engine = load_engine(counted, params, dev)
-    for _ in range(2):
-        engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(LOAD_STEPS):
-        assert engine.step() == LOAD_SLOTS
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    load = decode_load(engine)
     lens = torch.as_tensor(engine.slot_len, device=dev)
     load_logits, _ = counted.decode_fn(params, {"tokens": engine.tokens[:, None],
                                                 "cache": engine.cache, "cache_len": lens})
@@ -2468,37 +2502,40 @@ def lm_path(dev):
     del logits, load_logits
     steady = [host_ms(lambda: model.prefill_fn(params, {"tokens": tokens}), calls=3)]
     n_tok = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
-    contexts = engine.slot_len - 2 - LOAD_STEPS
     rec = {"arch": cfg.name, "layers": LM_LAYERS, "params_init_s": init_s,
            "prefill_tokens": list(PREFILL_SHAPE), "first_prefill_s": first_prefill_s,
            "prefill_ms_per_forward": steady[0],
            "prefill_tokens_per_s": n_tok / (steady[0] * 1e-3),
-           "decode_load": {
-               "slots": LOAD_SLOTS, "max_len": LOAD_MAX_LEN, "steps": LOAD_STEPS,
-               "context_min": int(contexts.min()), "context_max": int(contexts.max()),
-               "context_mean": float(contexts.mean()), "s": load_s,
-               "ms_per_step": 1e3 * load_s / LOAD_STEPS,
-               "tokens_per_s": LOAD_SLOTS * LOAD_STEPS / load_s},
+           "decode_load": load,
            "serve_smoke": smoke,
            "decode_fn_calls": calls[0], "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     return rec, counts, model, params, tokens, engine
 
 
-def profile_lm(model, params, tokens, engine) -> dict:
+def profile_lm(model, params, tokens, engine, decode_steps: int = 8) -> dict:
     """Where a prefill forward and a decode step at serving load spend the
-    card's time: torch.profiler over one prefill_fn call and over 8 steps of
-    the serving-load engine, kernel rows only, against the wall time under
-    the profiler (which stretches the host side, so the busy share is a
-    lower bound)."""
+    card's time: torch.profiler over one prefill_fn call and over
+    ``decode_steps`` steps of the serving-load engine, against the wall time
+    under the profiler (which stretches the host side, so the busy share is
+    a lower bound); the top kernels, and the top aten ops by the card time
+    of the kernels each launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def prefill():
         model.prefill_fn(params, {"tokens": tokens})
 
+    def per_call(rows, calls, width=80) -> dict:
+        """ms a call of each row, rows whose names agree in their first
+        ``width`` characters summed."""
+        out = {}
+        for e in rows:
+            out[e.key[:width]] = out.get(e.key[:width], 0.0) + 1e-3 * e.self_device_time_total / calls
+        return out
+
     out = {}
-    for name, fn, calls in (("prefill", prefill, 1), ("decode_step", engine.step, 8)):
+    for name, fn, calls in (("prefill", prefill, 1), ("decode_step", engine.step, decode_steps)):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2511,6 +2548,9 @@ def profile_lm(model, params, tokens, engine) -> dict:
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         device_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        ops = [e for e in events
+               if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+        top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
         out[name] = {
             "calls": calls, "wall_ms_per_call_profiled": 1e3 * wall_s / calls,
             "device_ms_per_call": 1e-3 * device_us / calls,
@@ -2521,38 +2561,51 @@ def profile_lm(model, params, tokens, engine) -> dict:
                 and e.key.startswith("aten::")) / calls,
             "flash_attention_ms_per_call": 1e-3 * sum(
                 e.self_device_time_total for e in kernels if "flash_" in e.key) / calls,
-            "top_kernels_ms_per_call": {e.key[:80]: 1e-3 * e.self_device_time_total / calls
-                                        for e in top}}
+            "top_kernels_ms_per_call": per_call(top, calls),
+            "top_ops_device_ms_per_call": per_call(top_ops, calls)}
     out["decode_step"]["slots"] = LOAD_SLOTS
     return out
 
 
-def lm_cpu_parity(dev, params_deep, config=None, n_tokens: int = 64) -> dict:
-    """Phase C (and E (e)): full width, 2 layers, compute float32 with TF32
-    off; the weights are the first 2 layers of ``params_deep`` (float32, a
-    deeper run's of ``config``, default moonshot's), copied to the CPU.
-    Prefill logits on [1, n_tokens] within rtol = atol = 1e-3 (float32 sums
-    in another order over d_model and the vocabulary) and identical greedy
-    tokens."""
+def first_periods(params, n: int) -> dict:
+    """``params`` with every block leaf cut to its first ``n`` periods
+    (views; the other leaves as they are)."""
+    first = lambda tree: ({k: first(v) for k, v in tree.items()}
+                          if isinstance(tree, dict) else tree[:n])
+    return {k: first(v) if k == "blocks" else v for k, v in params.items()}
+
+
+def lm_cpu_parity(dev, params_deep, config=None, n_tokens: int = 64,
+                  layers: int = 2) -> dict:
+    """Phase C (and E (e), (k)): full width, ``layers`` layers (default 2),
+    compute float32 with TF32 off; the weights are the first periods of
+    ``params_deep`` (float32, a deeper run's of ``config``, default
+    moonshot's), copied to the CPU.  Prefill logits on [1, n_tokens] (with
+    the VLM's seeded patches in front) within rtol = atol = 1e-3 (float32
+    sums in another order over d_model and the vocabulary) and identical
+    greedy tokens of a 2-request DecodeEngine."""
     from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
-    from repro_torch.models import zoo
+    from repro_torch.models import frontends, zoo
     from repro_torch.models.transformer import tree_to
     from repro_torch.serve.engine import DecodeEngine, Request
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(config or CONFIG, num_layers=2, compute_dtype="float32")
-    first = lambda tree: ({k: first(v) for k, v in tree.items()}
-                          if isinstance(tree, dict) else tree[:cfg.num_periods])
-    gpu_params = {k: first(v) if k == "blocks" else v for k, v in params_deep.items()}
+    cfg = dataclasses.replace(config or CONFIG, num_layers=layers, compute_dtype="float32")
+    gpu_params = first_periods(params_deep, cfg.num_periods)
     t0 = time.perf_counter()
     cpu_params = tree_to(gpu_params, torch.device("cpu"))
     rng = np.random.default_rng(SEED + 1)
     tokens = rng.integers(0, cfg.vocab, (1, n_tokens))
+    patches = (frontends.random_patches(cfg, torch.Generator().manual_seed(SEED), 1)
+               if cfg.num_patches else None)
     prompts = [rng.integers(0, cfg.vocab, 4).astype(np.int32) for _ in range(2)]
     outs = []
     for where, params in ((dev, gpu_params), (torch.device("cpu"), cpu_params)):
         model = zoo.build(cfg, device=where)
-        logits = model.prefill_fn(params, {"tokens": torch.as_tensor(tokens, device=where)})
+        batch = {"tokens": torch.as_tensor(tokens, device=where)}
+        if patches is not None:
+            batch["patches"] = patches.to(where)
+        logits = model.prefill_fn(params, batch)
         engine = DecodeEngine(model, params, slots=2, max_len=16)
         reqs = [Request(i, p, 4) for i, p in enumerate(prompts)]
         for r in reqs:
@@ -2562,8 +2615,8 @@ def lm_cpu_parity(dev, params_deep, config=None, n_tokens: int = 64) -> dict:
     (l_gpu, t_gpu), (l_cpu, t_cpu) = outs
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-3, atol=1e-3)
     assert t_gpu == t_cpu, (t_gpu, t_cpu)
-    return {"arch": cfg.name, "layers": 2, "compute_dtype": "float32",
-            "prefill_tokens": [1, n_tokens],
+    return {"arch": cfg.name, "layers": layers, "compute_dtype": "float32",
+            "prefill_tokens": [1, n_tokens], "patches": cfg.num_patches,
             "max_abs_logit_diff": float((l_gpu - l_cpu).abs().max()),
             "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0}
 
@@ -2719,24 +2772,37 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
 # (name, B, S, H, KV, dh, window, cap, q scale): gemma2's prefill shape with
 # its cap of 50; one sequence long enough that the local layers' window of
 # 4096 masks; a window of 256; q x 8 (the running max moves); MLA's prefill
-# (qk dim 192, V padded to it, no cap)
+# (qk dim 192, V padded to it, no cap); Jamba's attention layer (GQA 64/8)
+# and phi-3's MHA over 1024 patches + 1024 tokens (dh 96 in the 128 template)
 E_FLASH = (("gemma2", 4, 1024, 8, 4, 256, 0, 50.0, 1),
            ("gemma2_window4096", 1, 5120, 8, 4, 256, 4096, 50.0, 1),
            ("gemma2_window256", 4, 1024, 8, 4, 256, 256, 50.0, 1),
            ("gemma2_q_x8", 4, 1024, 8, 4, 256, 0, 50.0, 8),
-           ("mla", 4, 1024, 16, 16, 192, 0, 0.0, 1))
-# (arch, layers run, prefill shapes); None = all of the config's layers.
-# Float32 weights: deepseek ~2.34 GB a layer (27 ~64 GB leave no room for
-# the placed copies), gemma2 ~10.5 GB in all, llama3.2-3b ~12.9 GB,
-# starcoder2-15b ~1.5 GB a layer (40 ~63 GB).  yi-6b runs 8 of its 32
+           ("mla", 4, 1024, 16, 16, 192, 0, 0.0, 1),
+           ("jamba", 1, 1024, 64, 8, 128, 0, 0.0, 1),
+           ("phi3", 1, 2048, 32, 32, 96, 0, 0.0, 1))
+# (arch, layers run, prefill shapes, other fields cut); None = all of the
+# config's layers, nothing cut.  Float32 weights: deepseek ~2.34 GB a layer
+# (27 ~64 GB leave no room for the placed copies), gemma2 ~10.5 GB in all,
+# llama3.2-3b ~12.9 GB, starcoder2-15b ~1.5 GB a layer (40 ~63 GB),
+# mamba2-780m ~3.1 GB, phi-3-vision ~14.9 GB.  yi-6b runs 8 of its 32
 # layers: at full depth the script passed 600 s (the serve run's decode
 # steps are host-bound, ~0.2 s a layer).  llama3.2-3b's serve run is the
-# CLI's own (serve_cli_default).
-E_CONFIGS = (("deepseek-v2-lite-16b", 8, ((4, 1024),)),
-             ("gemma2-2b", None, ((4, 1024), (1, 5120))),
-             ("llama3.2-3b", None, ((1, 1024),)),
-             ("yi-6b", 8, ((1, 1024),)),
-             ("starcoder2-15b", 8, ((1, 1024),)))
+# CLI's own (serve_cli_default).  Jamba runs one 8-layer period (the
+# config allows whole periods only) with 4 of its 16 experts in bfloat16,
+# ~15.6 B parameters, 31 GB: 16 experts in bfloat16 make a period 89 GB,
+# 4 in float32 62.6 GB before the MoE's gathered slot weights (~1.2 GB a
+# slot); top-2 and the 4 secondary slots are kept.
+E_CONFIGS = (("deepseek-v2-lite-16b", 8, ((4, 1024),), None),
+             ("gemma2-2b", None, ((4, 1024), (1, 5120)), None),
+             ("llama3.2-3b", None, ((1, 1024),), None),
+             ("yi-6b", 8, ((1, 1024),), None),
+             ("starcoder2-15b", 8, ((1, 1024),), None),
+             ("mamba2-780m", None, ((4, 1024), (1, 8192)), None),
+             ("jamba-1.5-large-398b", 8, ((1, 1024),),
+              {"num_experts": 4, "param_dtype": "bfloat16"}),
+             ("phi-3-vision-4.2b", None, ((1, 1024),), None))
+E_SSM_ARCH = "mamba2-780m"            # decode at load, profile, admission reset
 E_CLI_ARCH = "llama3.2-3b"            # repro_torch.launch.serve's default
 E_PARITY_TOKENS = 256
 
@@ -2773,20 +2839,44 @@ def check_flash_softcap(dev) -> dict:
     return err
 
 
-def lm_config_path(dev, arch: str, layers, prefill_shapes,
-                   serve: bool = True) -> tuple[dict, dict, object, dict]:
-    """Phase E (b)-(d): one config at full width (depth cut to ``layers``),
-    seeded random weights.  The main path, counted from 0: prefill_fn on
-    each of ``prefill_shapes`` (finite logits; flash_attention once a layer,
-    the MoE pack and unpack once a layer for an MoE config) and, with
-    ``serve``, the serve CLI's run (every request returns 16 tokens; pack
-    and unpack once a layer a decode_fn call).  Then prefill tokens/s at
-    each shape.  Returns the record, the launch counts, the model and its
+def layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, MoE layers) of ``cfg``: the flash kernel runs once
+    an attention (or MLA) layer a prefill, the MoE pack and unpack once an
+    MoE layer a call; a mamba layer runs no kernel."""
+    attn = sum(k != "mamba" for k in cfg.block_pattern) * cfg.num_periods
+    moe = sum(k == "moe" for k in cfg.ffn_pattern) * cfg.num_periods
+    return attn, moe
+
+
+def prefill_batch(cfg, shape, dev, seed: int = SEED) -> dict:
+    """Seeded tokens of ``shape`` and, for the VLM, seeded patch embeddings
+    of the stub frontend ([B, num_patches, patch_embed_dim], JAX's layout)."""
+    from repro_torch.models import frontends
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape), device=dev)}
+    if cfg.num_patches:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch["patches"] = frontends.random_patches(cfg, gen, shape[0])
+    return batch
+
+
+def lm_config_path(dev, arch: str, layers, prefill_shapes, serve: bool = True,
+                   changes=None) -> tuple[dict, dict, object, dict]:
+    """Phase E (b)-(d), (h)-(j): one config at full width (depth cut to
+    ``layers``, other fields replaced by ``changes``), seeded random
+    weights.  The main path, counted from 0: prefill_fn on each of
+    ``prefill_shapes`` (with the VLM's patches; finite logits over every
+    position; flash_attention once an attention layer, the MoE pack and
+    unpack once an MoE layer) and, with ``serve``, the serve CLI's run
+    (every request returns 16 tokens; pack and unpack once an MoE layer a
+    decode_fn call).  Then prefill tokens/s at each shape (patches
+    included).  Returns the record, the launch counts, the model and its
     weights."""
     from repro_torch.configs import get
     from repro_torch.models import zoo
     full = get(arch)
-    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers,
+                              **(changes or {}))
     model = zoo.build(cfg, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2800,20 +2890,20 @@ def lm_config_path(dev, arch: str, layers, prefill_shapes,
         return model.decode_fn(p, batch)
 
     counted = dataclasses.replace(model, decode_fn=decode_fn)
-    rng = np.random.default_rng(SEED)
-    batches = [torch.as_tensor(rng.integers(0, cfg.vocab, shape), device=dev)
-               for shape in prefill_shapes]
-    moe = cfg.family == "moe"
+    batches = [prefill_batch(cfg, shape, dev) for shape in prefill_shapes]
+    attn, moe = layer_counts(cfg)
 
     torch.cuda.synchronize()
     reset_counts()                        # ---- the main path from here
     first_s = []
-    for tokens in batches:
+    for batch in batches:
         t0 = time.perf_counter()
-        logits = counted.prefill_fn(params, {"tokens": tokens})
+        logits = counted.prefill_fn(params, batch)
         torch.cuda.synchronize()
         first_s.append(time.perf_counter() - t0)
-        assert logits.shape == (*tokens.shape, cfg.vocab) and logits.dtype == cfg.cdtype
+        b, s = batch["tokens"].shape
+        assert logits.shape == (b, cfg.num_patches + s, cfg.vocab), logits.shape
+        assert logits.dtype == cfg.cdtype
         assert bool(torch.isfinite(logits).all()), f"{arch}: prefill logits are not finite"
         del logits
     after_prefill = lm_counts()
@@ -2824,20 +2914,24 @@ def lm_config_path(dev, arch: str, layers, prefill_shapes,
     assert not any(pe_counts().values()), pe_counts()
 
     n = len(batches)
-    assert after_prefill == {"flash_attention": n * cfg.num_layers,
-                             "onehot_dispatch": n * cfg.num_layers * moe,
-                             "onehot_combine": n * cfg.num_layers * moe}, after_prefill
+    assert after_prefill == {"flash_attention": n * attn, "onehot_dispatch": n * moe,
+                             "onehot_combine": n * moe}, after_prefill
     for name in ("onehot_dispatch", "onehot_combine"):
-        assert counts[name] == cfg.num_layers * (n + calls[0]) * moe, (name, counts, calls)
-    assert counts["flash_attention"] == n * cfg.num_layers, counts
+        assert counts[name] == moe * (n + calls[0]), (name, counts, calls)
+    assert counts["flash_attention"] == n * attn, counts
     prefill = []
-    for tokens, s in zip(batches, first_s):
-        ms = host_ms(lambda: model.prefill_fn(params, {"tokens": tokens}), calls=3)
-        prefill.append({"tokens": list(tokens.shape), "first_s": s, "ms_per_forward": ms,
-                        "tokens_per_s": tokens.numel() / (ms * 1e-3)})
+    for batch, s in zip(batches, first_s):
+        ms = host_ms(lambda: model.prefill_fn(params, batch), calls=3)
+        b, sl = batch["tokens"].shape
+        n_tok = b * (cfg.num_patches + sl)
+        prefill.append({"tokens": [b, sl], "patches": cfg.num_patches, "first_s": s,
+                        "ms_per_forward": ms, "tokens_per_s": n_tok / (ms * 1e-3)})
     rec = {"arch": cfg.name, "layers": cfg.num_layers, "of_layers": full.num_layers,
            "params_init_s": init_s, "prefill": prefill,
-           "serve_smoke": smoke if serve else None, "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "serve_smoke": smoke if serve else None, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if changes:
+        rec["reduced"] = {k: [getattr(full, k), v] for k, v in changes.items()}
     return rec, counts, model, params
 
 
@@ -2924,15 +3018,18 @@ def serve_cli_default(dev) -> dict:
 
 
 def flash_times(dev) -> dict:
-    """Phase E (f): the flash kernel at gemma2's prefill shape with cap 50
-    and cap 0, and at MLA's, each beside SDPA at the same shape with no cap
+    """Phase E (f), (g): the flash kernel at gemma2's prefill shape with cap
+    50 and cap 0, at MLA's, Jamba's and phi-3's (dh 96 in the 128
+    template), each beside SDPA at the same shape with no cap
     (the only library yardstick: no library call soft-caps) and its bound;
     CUDA events, in turns."""
     from repro_torch.kernels import dispatch
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
     for name, b, sl, h, kvh, dh, caps in (("gemma2", 4, 1024, 8, 4, 256, (50.0, 0.0)),
-                                          ("mla", 4, 1024, 16, 16, 192, (0.0,))):
+                                          ("mla", 4, 1024, 16, 16, 192, (0.0,)),
+                                          ("jamba", 1, 1024, 64, 8, 128, (0.0,)),
+                                          ("phi3", 1, 2048, 32, 32, 96, (0.0,))):
         q = torch.randn((b, sl, h, dh), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, sl, kvh, dh), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
@@ -2957,25 +3054,90 @@ def flash_times(dev) -> dict:
     return out
 
 
+def admission_reset_check(dev, params_deep) -> dict:
+    """Phase E (l): a 2-slot DecodeEngine on mamba2-780m's first 2 layers
+    (full width, float32) serves 4 requests of 6 tokens, the last two in
+    slots that the first two (and the empty slots' stale decodes) left
+    state in.  Every admission's logits equal a fresh-cache prefill_cache's
+    of the same prompt within rtol = atol = 1e-5."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    from repro_torch.serve import engine as E
+    cfg = dataclasses.replace(get(E_SSM_ARCH), num_layers=2, compute_dtype="float32")
+    model = zoo.build(cfg, device=dev)
+    params = first_periods(params_deep, cfg.num_periods)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab, 6).astype(np.int32) for _ in range(4)]
+    seen = []
+    real = E.prefill_cache
+
+    def recording(*args, **kwargs):
+        logits, cache = real(*args, **kwargs)
+        seen.append(logits[0])
+        return logits, cache
+
+    eng = E.DecodeEngine(model, params, slots=2, max_len=32)
+    for i, p in enumerate(prompts):
+        eng.submit(E.Request(i, p, 8))
+    E.prefill_cache = recording
+    try:
+        eng.run()
+    finally:
+        E.prefill_cache = real
+    assert len(seen) == 4, len(seen)
+    diffs = []
+    for got, p in zip(seen, prompts):
+        fresh, _ = real(model, params, torch.as_tensor(p, device=dev)[None],
+                        model.init_cache(None, 1, 32))
+        torch.testing.assert_close(got, fresh[0], rtol=1e-5, atol=1e-5)
+        diffs.append(float((got - fresh[0]).abs().max()))
+    return {"arch": cfg.name, "layers": 2, "slots": 2, "requests": 4,
+            "max_abs_logit_diff_per_admission": diffs}
+
+
 def lm_configs_path(dev) -> tuple[dict, dict]:
     """Phase E: the slice's other configs on the card, one model at a time.
     Returns the lm_configs record and the main paths' launch counts,
     summed."""
-    from repro_torch.configs import get
+    from repro_torch.configs import get, get_reduced
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
     total = dict.fromkeys(LM_KERNELS, 0)
     rec = {"flash_check_max_abs_err": check_flash_softcap(dev), "configs": []}
-    for arch, layers, shapes in E_CONFIGS:
+    for arch, layers, shapes, changes in E_CONFIGS:
         t0 = time.perf_counter()
         one, counts, model, params = lm_config_path(dev, arch, layers, shapes,
-                                                    serve=arch != E_CLI_ARCH)
+                                                    serve=arch != E_CLI_ARCH,
+                                                    changes=changes)
+        if arch == E_SSM_ARCH:
+            # decode at load: O(1) state a slot, whatever the context; then
+            # where a prefill and a serving-load step spend the card's time
+            reset_counts()                # ---- the main path from here
+            engine = load_engine(model, params, dev)
+            one["decode_load"] = decode_load(engine)
+            load_counts = lm_counts()     # ---- to here
+            assert not any(load_counts.values()), load_counts   # the SSD runs no kernel
+            tokens = prefill_batch(model.cfg, shapes[0], dev)["tokens"]
+            one["profile"] = profile_lm(model, params, tokens, engine, decode_steps=2)
+            del engine
+            torch.cuda.empty_cache()
+            one["admission_reset"] = admission_reset_check(dev, params)
         for k, c in counts.items():
             total[k] += c
         if arch == "deepseek-v2-lite-16b":
             one["placement"] = placement_check(dev, model, params)
-        if arch in ("deepseek-v2-lite-16b", "gemma2-2b"):
+        if arch in ("deepseek-v2-lite-16b", "gemma2-2b", E_SSM_ARCH, "phi-3-vision-4.2b"):
             one["cpu_parity"] = lm_cpu_parity(dev, params, get(arch), E_PARITY_TOKENS)
         del model, params
         torch.cuda.empty_cache()
+        if arch == "jamba-1.5-large-398b":
+            # full width in float32 does not fit: the REDUCED hybrid (one
+            # period: mamba, attention, dense and MoE layers) on both
+            cfg = get_reduced(arch)
+            cpu_model = zoo.build(cfg, device="cpu")
+            reduced = cpu_model.init_params(cpu_model.generator(SEED))
+            one["cpu_parity"] = lm_cpu_parity(dev, tree_to(reduced, dev), cfg,
+                                              E_PARITY_TOKENS, layers=cfg.num_layers)
         if arch == E_CLI_ARCH:
             one["serve_cli"] = serve_cli_default(dev)
             torch.cuda.empty_cache()
@@ -3300,7 +3462,8 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # ---- E. MLA and deepseek, soft-capped gemma2, the dense configs
+    # ---- E. MLA and deepseek, soft-capped gemma2, the dense configs,
+    # mamba2 (SSD), the Jamba hybrid and phi-3-vision
     t0 = time.perf_counter()
     rec, counts = lm_configs_path(dev)
     rec["phase_s"] = time.perf_counter() - t0
@@ -3316,10 +3479,16 @@ def main() -> int:
         "library_ms_gemma2": times["gemma2"]["library_ms"],
         "ms_mla": times["mla"]["cap0"]["ms"], "bound_ms_mla": times["mla"]["cap0"]["bound_ms"],
         "library_ms_mla": times["mla"]["library_ms"],
+        **{f"{key}_{name}": times[name][k1][k2] if k2 else times[name][k1]
+           for name in ("jamba", "phi3")
+           for key, k1, k2 in (("ms", "cap0", "ms"), ("bound_ms", "cap0", "bound_ms"),
+                               ("bound_by", "cap0", "bound_by"),
+                               ("library_ms", "library_ms", None))},
         "max_abs_err_softcap": max(rec["flash_check_max_abs_err"].values())})
     flash["shape"] += ("; *_gemma2: B=4 S=1024 H=8 KV=4 dh=256 causal bfloat16 (cap 50 "
-                       "and 0); *_mla: B=4 S=1024 H=KV=16 dh=192; library_ms_* SDPA "
-                       "without a cap")
+                       "and 0); *_mla: B=4 S=1024 H=KV=16 dh=192; *_jamba: B=1 S=1024 "
+                       "H=64 KV=8 dh=128; *_phi3: B=1 S=2048 H=KV=32 dh=96 (in the 128 "
+                       "template); library_ms_* SDPA without a cap")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

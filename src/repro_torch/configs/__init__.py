@@ -1,15 +1,15 @@
 """Architecture configs the port runs.  ``get(name)`` -> CONFIG (full
 size), ``get_reduced(name)`` -> REDUCED (CPU scale).  The JAX package has
-ten; the port has its six attention and MLA decoders.  The SSM, hybrid,
-encoder-decoder and VLM ones (mamba2-780m, jamba-1.5-large-398b,
-whisper-base, phi-3-vision-4.2b) need model code the port has not yet
-(ROADMAP.md §1)."""
+ten; the port has its nine decoder-only ones (dense, MoE, MLA, SSM,
+hybrid and VLM).  The encoder-decoder one, whisper-base, needs model code
+the port has not yet (ROADMAP.md §1)."""
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["llama3_2_3b", "starcoder2_15b", "gemma2_2b", "yi_6b",
-            "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b"]
+            "phi3_vision_4_2b", "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b",
+            "mamba2_780m", "jamba_1_5_large_398b"]
 
 # CLI/--arch aliases (the dashed ids)
 ALIASES = {
@@ -17,8 +17,11 @@ ALIASES = {
     "starcoder2-15b": "starcoder2_15b",
     "gemma2-2b": "gemma2_2b",
     "yi-6b": "yi_6b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "mamba2-780m": "mamba2_780m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

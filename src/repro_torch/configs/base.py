@@ -1,7 +1,8 @@
 """Architecture configuration schema of the port's language models.
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the decoder-only
-attention/MLA + dense/MoE family reads, with torch dtypes behind ``cdtype`` and
+families read (attention, MLA and Mamba-2 mixers; dense, MoE and no FFN;
+the VLM's patch frontend), with torch dtypes behind ``cdtype`` and
 ``pdtype``.  ``moe_impl`` is gone: its three values compute one function
 in the JAX package, and the port has one realization (the tensor's device
 picks plain PyTorch or the CUDA kernels).
@@ -25,8 +26,8 @@ class ArchConfig:
     d_model: int
     vocab: int
     # repeating period: layer i uses pattern[i % len(pattern)]
-    block_pattern: Tuple[str, ...] = ("attn",)  # attn|attn_local|attn_nocausal|mla
-    ffn_pattern: Tuple[str, ...] = ("dense",)   # dense|moe
+    block_pattern: Tuple[str, ...] = ("attn",)  # attn|attn_local|attn_nocausal|mla|mamba
+    ffn_pattern: Tuple[str, ...] = ("dense",)   # dense|moe|none
     # attention geometry
     num_heads: int = 0
     num_kv_heads: int = 0
@@ -51,6 +52,16 @@ class ArchConfig:
     capacity_factor: float = 1.25
     ditto_secondary: int = 0          # X secondary expert slots (0 = off)
     moe_group_size: int = 512
+    # SSM (mamba2)
+    d_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    # encoder-decoder (whisper; its model is not ported yet)
+    encoder_len: int = 0              # e.g. 1500 audio frames
+    # VLM stub frontend (phi-3-vision)
+    num_patches: int = 0
+    patch_embed_dim: int = 0
     # numerics
     norm_eps: float = 1e-5
     act: str = "silu"
@@ -59,6 +70,8 @@ class ArchConfig:
     tie_embeddings: bool = True
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # which serve shapes make sense (sub-quadratic archs only for long ctx)
+    supports_long_context: bool = False
 
     def __post_init__(self):
         if len(self.block_pattern) != len(self.ffn_pattern):
@@ -74,6 +87,14 @@ class ArchConfig:
     @property
     def num_periods(self) -> int:
         return self.num_layers // self.period
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def padded_vocab(self) -> int:

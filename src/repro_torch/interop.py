@@ -91,15 +91,19 @@ def tree_from_numpy(tree, device) -> dict:
 
 def lm_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
     """The port's LM params from a nested dict of numpy arrays in the JAX
-    package's layout (``repro.models.transformer.init_params``; attention
-    and MLA mixers, dense and MoE FFNs, ``place_slot_weights``' trees).
-    Leaves keep their dtypes.  Raises if the tree does not fit ``cfg``: the block
-    keys of its layer pattern, every block leaf stacked over
-    ``cfg.num_periods``, and the embedding table's shape."""
+    package's layout (``repro.models.transformer.init_params``; attention,
+    MLA and mamba mixers, dense and MoE FFNs and FFN-less layers, the VLM's
+    ``patch_proj``, ``place_slot_weights``' trees).  Leaves keep their
+    dtypes.  Raises if the tree does not fit ``cfg``: the block keys of its
+    layer pattern (no ``norm2`` or ``ffn`` for a ``none`` FFN), every block
+    leaf stacked over ``cfg.num_periods``, the embedding table's shape, and
+    a ``patch_proj`` of [patch_embed_dim, d_model] exactly when the config
+    has patches."""
     device = resolve_device(device)
     params = tree_from_numpy(tree, device)
-    keys = {f"{j}.{part}" for j in range(cfg.period)
-            for part in ("norm1", "mixer", "norm2", "ffn")}
+    keys = {f"{j}.{part}" for j, fk in enumerate(cfg.ffn_pattern)
+            for part in (("norm1", "mixer") if fk == "none"
+                         else ("norm1", "mixer", "norm2", "ffn"))}
     blocks = params.get("blocks", {})
     if set(blocks) != keys:
         raise ValueError(f"{cfg.name}: block keys {sorted(blocks)} are not "
@@ -112,6 +116,10 @@ def lm_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
     if emb != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embedding {tuple(emb)} is not "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
+    want = (cfg.patch_embed_dim, cfg.d_model) if cfg.num_patches else None
+    got = tuple(params["patch_proj"]["w"].shape) if "patch_proj" in params else None
+    if got != want:
+        raise ValueError(f"{cfg.name}: patch_proj {got} is not {want}")
     return params
 
 

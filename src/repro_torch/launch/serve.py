@@ -2,14 +2,19 @@
 weights (a throughput and machinery demo).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --full
 
 The CLI of ``repro.launch.serve`` plus ``--device`` (default ``cuda``,
 which raises without a CUDA device).  ``--arch`` takes any config the port
-has (``repro_torch.configs.ARCH_IDS`` or a dashed alias; default
-llama3.2-3b, as in the JAX CLI); ``--full`` serves its full-size config,
-else its REDUCED one.  Checkpoints (``--ckpt``) are not ported yet.
+has (``repro_torch.configs.ARCH_IDS`` or a dashed alias: the dense, MoE,
+MLA, SSM (mamba2-780m), hybrid (jamba-1.5-large-398b) and VLM
+(phi-3-vision-4.2b) decoders; default llama3.2-3b, as in the JAX CLI);
+``--full`` serves its full-size config, else its REDUCED one.  The VLM
+serves text only, as the JAX engine does.  Checkpoints (``--ckpt``) are
+not ported yet.
 """
 from __future__ import annotations
 

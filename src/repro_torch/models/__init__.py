@@ -1,2 +1,3 @@
-"""Language models of the port: the decoder-only attention + MoE family
-(``zoo.build``), in the JAX package's parameter layout."""
+"""Language models of the port: the decoder-only families -- dense, MoE,
+MLA, Mamba-2 (SSM), the Jamba hybrid and the VLM backbone
+(``zoo.build``) -- in the JAX package's parameter layout."""

@@ -4,9 +4,11 @@ pattern of ``ArchConfig``), in the parameter layout of
 the cache is stacked over periods on a leading axis.  A Python loop over
 periods takes the place of the JAX ``lax.scan``.
 
-It covers the mixer kinds ``attn``, ``attn_local``, ``attn_nocausal`` and
-``mla`` and the FFN kinds ``dense`` and ``moe``: every family but the SSM,
-hybrid, encoder-decoder and VLM ones.
+It covers the mixer kinds ``attn``, ``attn_local``, ``attn_nocausal``,
+``mla`` and ``mamba`` and the FFN kinds ``dense``, ``moe`` and ``none``
+(a layer without ``norm2`` and ``ffn``): the dense, MoE, SSM, hybrid and
+VLM families, the last with its patch embeddings prepended to the tokens'
+(``patch_proj``).  The encoder-decoder family (whisper) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,24 +19,21 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
-
-
-def _unported(what: str, kind: str):
-    return NotImplementedError(
-        f"{what} kind {kind!r} is not ported yet (ROADMAP.md §1: Mamba2, "
-        "Whisper and the VLM frontends come in later slices)")
+MIXER_KINDS = (*ATTN_KINDS, "mla", "mamba")
+FFN_KINDS = ("dense", "moe", "none")
 
 
 def _check_kinds(cfg: ArchConfig):
     for mk, fk in zip(cfg.block_pattern, cfg.ffn_pattern):
-        if mk not in (*ATTN_KINDS, "mla"):
-            raise _unported("mixer", mk)
-        if fk not in ("dense", "moe"):
-            raise _unported("ffn", fk)
+        if mk not in MIXER_KINDS:
+            raise ValueError(f"mixer kind {mk!r}")
+        if fk not in FFN_KINDS:
+            raise ValueError(f"ffn kind {fk!r}")
 
 
 def take(tree, i: int):
@@ -64,6 +63,9 @@ def _stack(trees):
 # ------------------------------------------------------------------ params
 
 def _mixer_params(cfg: ArchConfig, kind: str, gen: torch.Generator):
+    if kind == "mamba":
+        return M.mamba2_params(gen, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+                               cfg.d_state, cfg.pdtype)
     if kind == "mla":
         return MLA.mla_params(gen, cfg.d_model, cfg.num_heads, cfg.kv_lora_rank,
                               cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
@@ -78,6 +80,8 @@ def period_params(cfg: ArchConfig, gen: torch.Generator):
     for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
         p[f"{j}.norm1"] = L.rmsnorm_params(cfg.d_model, gen.device)
         p[f"{j}.mixer"] = _mixer_params(cfg, mk, gen)
+        if fk == "none":            # pure-mamba blocks (mamba2-780m: d_ff=0)
+            continue
         p[f"{j}.norm2"] = L.rmsnorm_params(cfg.d_model, gen.device)
         if fk == "dense":
             p[f"{j}.ffn"] = L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
@@ -97,6 +101,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
          "final_norm": L.rmsnorm_params(cfg.d_model, gen.device)}
     if not cfg.tie_embeddings:
         p["unembed"] = L.dense_params(gen, cfg.d_model, cfg.vocab, cfg.pdtype)
+    if cfg.num_patches:
+        p["patch_proj"] = L.dense_params(gen, cfg.patch_embed_dim, cfg.d_model,
+                                         cfg.pdtype)
     return p
 
 
@@ -104,6 +111,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
 
 def _apply_mixer(cfg: ArchConfig, kind: str, pp, x):
     cd = cfg.cdtype
+    if kind == "mamba":
+        # the prefill starts from a zero state and drops the final one, as
+        # the JAX version's _period_forward does
+        y, _ = M.mamba2_forward(pp, x, d_inner=cfg.d_inner, num_heads=cfg.ssm_heads,
+                                d_state=cfg.d_state, chunk=cfg.ssm_chunk,
+                                compute_dtype=cd)
+        return y
     if kind == "mla":
         return MLA.mla_attention(
             pp, x, num_heads=cfg.num_heads, qk_nope=cfg.qk_nope_dim,
@@ -134,17 +148,26 @@ def _logits(cfg: ArchConfig, params, x):
     return L.softcap(logits, cfg.logit_softcap)
 
 
-def forward(cfg: ArchConfig, params, tokens):
-    """tokens [B, S] -> (logits [B, S, V], {"lb_loss"}): the full causal
-    forward of prefill."""
+def forward(cfg: ArchConfig, params, tokens, *, patches=None):
+    """tokens [B, S] (+ patches [B, P, patch_embed_dim] for the VLM) ->
+    (logits [B, P + S, V], {"lb_loss"}): the full causal forward of
+    prefill.  The VLM's projected patches come first in the sequence, and
+    the logits keep their positions."""
     _check_kinds(cfg)
     x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
+    if cfg.num_patches:
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the forward takes patches "
+                             f"{(tokens.shape[0], cfg.num_patches, cfg.patch_embed_dim)}")
+        x = torch.cat([L.dense(params["patch_proj"], patches, cfg.cdtype), x], dim=1)
     lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_periods):
         pp = take(params["blocks"], i)
         for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
             h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
             x = x + _apply_mixer(cfg, mk, pp[f"{j}.mixer"], h)
+            if fk == "none":
+                continue
             h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
             y, aux = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
             x = x + y
@@ -156,15 +179,19 @@ def forward(cfg: ArchConfig, params, tokens):
 # ------------------------------------------------------------------ decode
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict[str, Any]:
-    """Per-period caches, {str(j): KVCache | MLACache} with leaves
-    [num_periods, batch, len, ...]; local layers keep only their window,
-    MLA layers the latent and the rope key."""
+    """Per-period caches, {str(j): KVCache | MLACache | MambaCache} with
+    leaves [num_periods, batch, ...]; local layers keep only their window,
+    MLA layers the latent and the rope key, mamba layers their SSM state
+    and conv tail (no length)."""
     _check_kinds(cfg)
     n = cfg.num_periods * batch
     caches = {}
     for j, mk in enumerate(cfg.block_pattern):
         if mk == "mla":
             c = MLA.init_mla_cache(n, max_len, cfg.kv_lora_rank, cfg.qk_rope_dim,
+                                   cfg.cdtype, device)
+        elif mk == "mamba":
+            c = M.init_mamba_cache(n, cfg.d_inner, cfg.ssm_heads, cfg.d_state,
                                    cfg.cdtype, device)
         else:
             ln = min(max_len, cfg.window) if mk == "attn_local" else max_len
@@ -179,14 +206,19 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
     """One-token decode: tokens [B, 1] -> (logits [B, 1, V], cache).
 
     ``cache_len`` (int, 0-d or [B] tensor) is the number of valid positions
-    already in the cache; the new K/V are written into ``cache`` in place."""
+    already in the cache; the new K/V (latent, SSM state) are written into
+    ``cache`` in place."""
     cd = cfg.cdtype
     x = L.embed_lookup(params["embed"], tokens, cd)
     for i in range(cfg.num_periods):
         pp = take(params["blocks"], i)
         for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
             h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
-            if mk == "mla":
+            if mk == "mamba":
+                y, _ = M.mamba2_decode(
+                    pp[f"{j}.mixer"], h, take(cache[str(j)], i), d_inner=cfg.d_inner,
+                    num_heads=cfg.ssm_heads, d_state=cfg.d_state, compute_dtype=cd)
+            elif mk == "mla":
                 y, _ = MLA.mla_decode(
                     pp[f"{j}.mixer"], h, take(cache[str(j)], i), cache_len,
                     num_heads=cfg.num_heads, qk_nope=cfg.qk_nope_dim,
@@ -201,6 +233,8 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
                     softcap_val=cfg.attn_softcap, compute_dtype=cd,
                     rope=cfg.use_rope, ring=(mk == "attn_local"))
             x = x + y
+            if fk == "none":
+                continue
             h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
             y, _ = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
             x = x + y

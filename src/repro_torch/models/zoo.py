@@ -1,14 +1,18 @@
 """The model zoo: one API over the architectures the port runs.
 
 ``build(cfg, device=...)`` returns a ``Model`` whose members are plain
-functions, the inference half of ``repro.models.zoo.Model`` for the dense
-and MoE decoders (attention and MLA mixers).  Training, the SSM, hybrid,
-whisper and VLM families and the sharding specs come in later slices
-(ROADMAP.md §1).
+functions, the inference half of ``repro.models.zoo.Model`` for the
+decoder-only families: dense, MoE (attention and MLA mixers), SSM and
+hybrid (Mamba-2 mixers), and the VLM with its stub patch frontend.
+Training, the encoder-decoder family (whisper) and the sharding specs come
+in later slices (ROADMAP.md §1).
 
 Batch layouts (dicts of tensors on the model's device):
-  prefill {"tokens" [B, S] int}
+  prefill {"tokens" [B, S] int, ("patches" [B, P, patch_embed_dim])}
   decode  {"tokens" [B, 1] int, "cache" tree, "cache_len" int | () | [B]}
+
+The VLM's prefill logits keep the patch positions ([B, P + S, V]), as the
+JAX package's ``prefill_fn`` does; the VLM serves text only.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import transformer as T
+
+
+DECODER_ONLY = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +46,7 @@ class Model:
 def build(cfg: ArchConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` ("cuda" raises without a CUDA
     device; pass "cpu" to run the plain PyTorch path)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in DECODER_ONLY:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md §1)")
     device = resolve_device(device)
@@ -50,7 +57,8 @@ def build(cfg: ArchConfig, device="cuda") -> Model:
         return T.init_params(cfg, gen)
 
     def prefill_fn(params, batch):
-        logits, _ = T.forward(cfg, params, batch["tokens"])
+        logits, _ = T.forward(cfg, params, batch["tokens"],
+                              patches=batch.get("patches"))
         return logits
 
     def decode_fn(params, batch):

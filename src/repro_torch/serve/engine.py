@@ -10,7 +10,10 @@ The PyTorch counterpart of ``repro/serve/engine.py``.  The LM half:
     lengths live in a [B] cache_len vector that the attention masks read.
 Empty slots behave as in the JAX engine: they decode their stale token at
 length 0 every tick, and those tokens enter each MoE layer's histogram and
-Ditto plan.  The cache is updated in place.
+Ditto plan.  The cache is updated in place.  One deliberate divergence:
+admission zeroes the slot's SSM state and conv tail (every ``MambaCache``)
+before its prefill, where the JAX engine hands a reused slot the previous
+request's (no length masks an SSM state, unlike the KV and latent caches).
 
 The analytics half: ``StreamEngine`` runs many tenants' tuple streams
 through one ``core.executor.make_multistream_executor``, as JAX's does.
@@ -29,6 +32,7 @@ from repro_torch import obs as obs_lib
 from repro_torch.core.executor import make_multistream_executor, stack_plans
 from repro_torch.core.types import ExecStats, resolve_device
 from repro_torch.data.pipeline import chunk_stream
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.zoo import Model
 
 
@@ -103,6 +107,12 @@ class DecodeEngine:
                 # the prefill writes into the engine's cache
                 cache_i = {j: type(kv)(*(t[:, i:i + 1] for t in kv))
                            for j, kv in self.cache.items()}
+                # a request starts from a zero SSM state (the slot's last
+                # request, or the empty slot's stale decodes, left one)
+                for kv in cache_i.values():
+                    if isinstance(kv, MambaCache):
+                        for t in kv:
+                            t.zero_()
                 prompt = torch.as_tensor(req.prompt, dtype=torch.int32,
                                          device=self.model.device)[None, :]
                 logits, _ = prefill_cache(self.model, self.params, prompt, cache_i)

@@ -1,10 +1,12 @@
 """The port's architecture configs and its serve CLI, on the CPU.
 
 Each of the port's configs, CONFIG and REDUCED, equals the JAX package's
-on every field the port's ``ArchConfig`` has; the registry resolves the
-dashed names and refuses the configs whose model code is not ported; and
-``python -m repro_torch.launch.serve --device cpu`` with the default arch
-(llama3.2-3b, the JAX CLI's default) serves every request.
+on every field the port's ``ArchConfig`` has, and its derived SSM widths
+too; the registry resolves the dashed names and refuses the config whose
+model code is not ported (whisper-base), as ``zoo.build`` refuses its
+family; and ``python -m repro_torch.launch.serve --device cpu`` with the
+default arch (llama3.2-3b, the JAX CLI's default), and with each of the
+SSM, hybrid and VLM configs, serves every request.
 """
 import dataclasses
 import importlib
@@ -29,6 +31,7 @@ def test_config_equals_jax(arch, which):
     for field in dataclasses.fields(got):
         assert getattr(got, field.name) == getattr(want, field.name), field.name
     assert got.cdtype.itemsize == want.cdtype.itemsize
+    assert (got.d_inner, got.ssm_heads) == (want.d_inner, want.ssm_heads)
 
 
 def test_registry_resolves_the_jax_aliases():
@@ -40,6 +43,20 @@ def test_registry_resolves_the_jax_aliases():
         else:
             with pytest.raises(NotImplementedError, match="no config"):
                 configs.get_reduced(alias)
+
+
+def test_registry_leaves_only_whisper_unported():
+    missing = [a for a in jconfigs.ARCH_IDS if a not in configs.ARCH_IDS]
+    assert missing == ["whisper_base"]
+    with pytest.raises(NotImplementedError, match="no config"):
+        configs.get("whisper-base")
+
+
+def test_zoo_refuses_the_encdec_family():
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(configs.get_reduced("llama3.2-3b"), family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        zoo.build(cfg, device="cpu")
 
 
 def test_serve_cli_default_arch_serves_every_request():
@@ -59,3 +76,11 @@ def test_serve_cli_default_arch_is_llama(monkeypatch, capsys):
     serve.main(["--device", "cpu", "--requests", "1", "--max-new", "2"])
     assert asked == ["llama3.2-3b"]
     assert "served 1 requests / 2 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
+                                  "phi-3-vision-4.2b"])
+def test_serve_cli_serves_every_request(arch, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--arch", arch])
+    assert "served 8 requests / 128 tokens" in capsys.readouterr().out

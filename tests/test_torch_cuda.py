@@ -1084,3 +1084,131 @@ def test_meshed_session_engine_on_card_matches_local(cuda_device):
     for x, y in zip(a_m, a_l):
         assert np.array_equal(x, y)
     assert r_m == r_l and s_m == s_l and g_m == g_l
+
+
+NEW_LM_ARCHS = ["mamba2-780m", "jamba-1.5-large-398b", "phi-3-vision-4.2b"]
+
+
+def _lm_batch(cfg, device, b=2, s=64, seed=0):
+    """Seeded tokens (and patches for the VLM) for a prefill of ``cfg``."""
+    from repro_torch.models import frontends
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen)}
+    if cfg.num_patches:
+        batch["patches"] = frontends.random_patches(cfg, gen, b)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _layer_kinds(cfg):
+    attn = sum(k != "mamba" for k in cfg.block_pattern) * cfg.num_periods
+    moe = sum(k == "moe" for k in cfg.ffn_pattern) * cfg.num_periods
+    return attn, moe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_LM_ARCHS)
+def test_new_lm_configs_on_card_match_cpu(cuda_device, monkeypatch, arch):
+    """The SSM, hybrid and VLM REDUCED configs (float32, TF32 off), the same
+    seeded weights on the card and on the CPU: prefill logits (with patches
+    for the VLM) and eight decode steps' logits within rtol = atol = 1e-4,
+    greedy tokens identical.  On the card the flash kernel runs once an
+    attention layer a prefill and the MoE pack and unpack once an MoE layer
+    a call; the SSD is plain PyTorch on both."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.serve import engine
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    models = {d: zoo.build(cfg, device=d) for d in (cpu, cuda_device)}
+    params = {cpu: models[cpu].init_params(models[cpu].generator(0))}
+    params[cuda_device] = tree_to(params[cpu], cuda_device)
+    attn, moe = _layer_kinds(cfg)
+    out = {}
+    for d in (cpu, cuda_device):
+        model, p = models[d], params[d]
+        before = (flash_attention.launches, onehot_dispatch.launches,
+                  onehot_combine.launches)
+        logits = model.prefill_fn(p, _lm_batch(cfg, d))
+        after = (flash_attention.launches, onehot_dispatch.launches,
+                 onehot_combine.launches)
+        want = (attn, moe, moe) if d.type == "cuda" else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        cache = model.init_cache(None, 2, 16)
+        toks = _lm_batch(cfg, d, s=8, seed=1)["tokens"]
+        steps = []
+        for t in range(8):
+            lg, cache = model.decode_fn(p, {"tokens": toks[:, t:t + 1], "cache": cache,
+                                            "cache_len": t})
+            steps.append(lg[:, 0])
+        gen = engine.greedy_generate(model, p, toks[:, :5], max_new_tokens=4)
+        out[d.type] = (logits.cpu(), torch.stack(steps, 1).cpu(), gen.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_LM_ARCHS)
+def test_new_lm_configs_never_reach_a_plain_version(cuda_device, monkeypatch, arch):
+    """The same configs in bfloat16 with every plain kernel version made to
+    raise: a prefill and a decode step run on the card's kernels alone."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import zoo
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("onehot_dispatch", "onehot_combine", "flash_attention"):
+        monkeypatch.setattr(ref, name, refuse)
+    cfg = dataclasses.replace(get_reduced(arch), compute_dtype="bfloat16")
+    model = zoo.build(cfg, device=cuda_device)
+    params = model.init_params(model.generator(0))
+    before = flash_attention.launches
+    logits = model.prefill_fn(params, _lm_batch(cfg, cuda_device))
+    cache = model.init_cache(params, 2, 8)
+    model.decode_fn(params, {"tokens": torch.zeros((2, 1), dtype=torch.int32,
+                                                   device=cuda_device),
+                             "cache": cache, "cache_len": 0})
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
+    assert flash_attention.launches - before == _layer_kinds(cfg)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b"])
+def test_decode_engine_admission_on_card_starts_from_zero_state(cuda_device, arch):
+    """Four requests of 6 tokens over 2 card slots: every admission's
+    logits equal a fresh-cache prefill's on the card (rtol = atol = 1e-5,
+    float32)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import zoo
+    from repro_torch.serve import engine
+    cfg = get_reduced(arch)
+    model = zoo.build(cfg, device=cuda_device)
+    params = model.init_params(model.generator(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 6).astype(np.int32) for _ in range(4)]
+    seen = []
+    real = engine.prefill_cache
+
+    def recording(*args, **kwargs):
+        logits, cache = real(*args, **kwargs)
+        seen.append(logits[0].cpu())
+        return logits, cache
+
+    eng = engine.DecodeEngine(model, params, slots=2, max_len=32)
+    for i, p in enumerate(prompts):
+        eng.submit(engine.Request(i, p, 5))
+    engine.prefill_cache = recording
+    try:
+        eng.run()
+    finally:
+        engine.prefill_cache = real
+    assert len(seen) == 4
+    for got, p in zip(seen, prompts):
+        fresh, _ = real(model, params, torch.as_tensor(p, device=cuda_device)[None],
+                        model.init_cache(None, 1, 32))
+        torch.testing.assert_close(got, fresh[0].cpu(), rtol=1e-5, atol=1e-5)
