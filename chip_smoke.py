@@ -55,8 +55,8 @@ Phases (any failure exits non-zero before the result lines):
      bit-exact against the oracle;
  11. StreamEngine at serving size (M = 16, X = 14, chunks of 4096, 8 lanes,
      every engine on the default obs bundle): HISTO with an online batch of
-     8 tenants at Zipf alpha 0-3, 2^21 - r_i tuples each (seven ragged
-     tails; 512 batched chunks, ~16 M tuples in one flush) and a planned
+     8 tenants at Zipf alpha 0-3, 2^20 - r_i tuples each (seven ragged
+     tails; 256 batched chunks, ~8 M tuples in one flush) and a planned
      batch of 5 tenants under per-tenant static plans (3 pad lanes); HHD, 8
      tenants at alpha 3 (cms_update over lanes); HLL, 4 ragged tenants (4
      pad lanes); 2^20 tuples a tenant outside the online batch.  Every tenant equal to its oracle and, merged and every
@@ -74,7 +74,7 @@ Phases (any failure exits non-zero before the result lines):
      ragged appends (0-4 chunks plus a tail), queries in both scopes,
      engine and per-session flushes and closes: (a) HISTO (512 bins, domain
      2^20), 8 primary + 8 secondary slots, aot_buckets=8: 24 tenants at
-     Zipf alpha 0-3 and ~2^24 tuples (~128 MB), 8 of them one open_batch
+     Zipf alpha 0-3 and ~2^23 tuples (~64 MB), 8 of them one open_batch
      storm, 16 by open, 8 of which queue; every answer bit-exact against
      the oracle, the slot table and queue against FIFO admission, no build
      event after warmup(), route_accumulate once per batched chunk step,
@@ -85,7 +85,7 @@ Phases (any failure exits non-zero before the result lines):
      restored, fewer records replayed than logged, backlogs and slot table
      and every answer as in (a), then the rest with (a)'s checks; (c) HHD, 8
      tenants at alpha 3 with secondary grants (cms_update over
-     [16 * 30, 4, 1024]); (d) DP under lanes, 4 tenants of 2^22 tuples at
+     [16 * 30, 4, 1024]); (d) DP under lanes, 4 tenants of 2^21 tuples at
      alpha 0-3 with 2^19 slots a PE (~0.75 GB of lane state): partitions
      equal to the oracle as multisets, no cursor at the capacity, no PE
      kernel launched.  Prints the session, durability and session_dp lines
@@ -96,8 +96,8 @@ Phases (any failure exits non-zero before the result lines):
  13. SessionService, the TCP front door, in front of a DurableSessionEngine
      on the card (phase 12's HISTO shape and slots, checkpoint_every=4,
      keep=3, warmup() before start()), scored admission, a per-tenant rate
-     limit and the scrape sidecar: 32 tenants at Zipf alpha 0-3, ~2^25
-     tuples (~256 MB) over loopback in ragged appends of up to 2^19 tuples
+     limit and the scrape sidecar: 32 tenants at Zipf alpha 0-3, ~2^24
+     tuples (~128 MB) over loopback in ragged appends of up to 2^19 tuples
      (4 MB frames), from 8 threads with a ServiceClient each and one
      AsyncServiceClient pipelining its 8 tenants' appends; rate-limited
      requests sleep their RETRY-AFTER and retry; more opens than the 8
@@ -129,7 +129,7 @@ Phases (any failure exits non-zero before the result lines):
      card and a CPU mesh, then a 2^22-tuple alpha-2 stream at X = 2, timed;
      route_accumulate once a shard a chunk; (b) route_all_to_all on 8 card
      shards against its numpy oracle; (c) SessionEngine(mesh=4 shards) at
-     phase 12a's shape and a local engine through one op script of ~2^22
+     phase 12a's shape and a local engine through one op script of ~2^21
      tuples: answers equal to the oracle and to each other, slot tables,
      folds and integer telemetry equal, folds across shards, no build
      event after warmup(), the PE kernel once a shard an engine-wide step
@@ -167,7 +167,7 @@ Then the other configs, one model on the card at a time:
      cap 50), one sequence of 5120 with the window of 4096, a window of 256,
      q x 8, and MLA's [4, 1024] shape (H = KV = 16, dh 192, no cap); the
      causal first row must be v's row 0;
-     (b) deepseek-v2-lite-16b at full width, 8 of its 27 layers: prefill_fn
+     (b) deepseek-v2-lite-16b at full width, 4 of its 27 layers: prefill_fn
      on [4, 1024] (finite; flash, dispatch and combine once a layer) and
      the serve CLI's run (every request returns 16 tokens), then
      place_slot_weights at layer 0 with the plan the live path derives from
@@ -207,12 +207,48 @@ Then the other configs, one model on the card at a time:
      each admission's logits equal a fresh-cache prefill's (the SSM state
      is zeroed at admission).  Prints an lm_config line a config and the
      lm_configs line.
+  F. whisper-base, the encoder-decoder family, at full width and depth (6 +
+     6 layers, d 512, 8 x 64 heads): (a) flash against its plain version,
+     bf16 and float32, at the encoder's [4, 1500, 8/8, 64] non-causal shape
+     (1500 keys: a ragged last key tile) and the cross-attention's [4, 448
+     q, 1500 k]; (b) prefill_fn on seeded frames [4, 1500, 512] and tokens
+     [4, 448] (finite; flash 18 times: once an encoder layer, twice a
+     decoder layer) and a greedy decode of 2 requests whose cross K/V come
+     from encode of seeded frames; (c) the serve CLI,
+     repro_torch.launch.serve.main(["--full", "--arch", "whisper-base"]):
+     every request returns 16 tokens; (d) the first 2 + 2 layers in float32
+     (TF32 off) on the card and the CPU: logits within 1e-3, identical
+     greedy tokens; (e) positions/s (frames + tokens) of the prefill, flash
+     ms at both shapes beside SDPA and the bound.  Prints the whisper line.
+  G. training: (a) the flash backward kernel through its autograd function
+     against ref.flash_attention_bwd (autograd through the plain forward)
+     on float32 copies, bf16 and float32, at llama3.2-3b's [1, 1024, 24/8,
+     128] causal, gemma2's [4, 1024, 8/4, 256] with cap 50 and with window
+     256, whisper's two shapes, q x 8, and q x 4 under cap 5 (where the
+     cap's derivative matters); each of dQ, dK, dV within tol (1 + max
+     |want|) element by element, tol 1e-4 (float32) or 3e-2 (bf16), and
+     within 1e-5 (float32) or 1e-2 (bf16) of |want| in norm, each reading
+     printed beside its bounds; (b) whisper-base at full width and
+     depth, adamw and warmup_cosine, batch [8, 448] with 1500 frames, 20
+     steps on one fixed batch; (c) llama3.2-3b at full width, 4 of its 28
+     layers, [2, 1024], 8 steps; in both the loss falls, every parameter
+     stays finite, and the forward and backward kernels launch once an
+     attention a step; (d) one step of whisper-base's first 2 + 2 layers in
+     float32 on the card and the CPU: the loss within 1e-3, gradients and
+     params after the step within 1e-3 of each leaf's largest value; (e)
+     repro_torch.launch.train.main at --arch whisper-base, 4 steps with a
+     checkpoint under build/, then resumed to step 8; then the backward
+     kernel's times at llama's and whisper's shapes beside its plain
+     version, PyTorch's flash backward kernel (aten, called directly) and
+     the bound.  Prints the training line:
+     ms a step, tokens/s and the backward kernel's share of a step.
 Prints the throughput of each configuration, the card's name and power
-limit, a {"kernels": [...]} line (each PE kernel's launches summed over the
-count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14: phase 11's windows
-are its four flushes, phase 12's its op script runs, phase 13's the serving
-before the crash and after the recovery, phase 14's its streams and op
-script runs), and last {"ok": true, "device": {...}}.
+limit, a {"kernels": [...]} line of six entries (each PE kernel's launches
+summed over the count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14:
+phase 11's windows are its four flushes, phase 12's its op script runs,
+phase 13's the serving before the crash and after the recovery, phase 14's
+its streams and op script runs; flash_attention_bwd's over phase G's main
+paths), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -245,25 +281,27 @@ SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
 LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
 LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
 STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
-STREAM_TUPLES, STREAM_SMALL = 2**21, 2**20    # a tenant of the online batch; of the others
+# phases 11-14's sizes were halved to keep the script under 600 s beside
+# phases F and G (HHD's phase 12 (c) as it was); PERF.md §4 lists the cuts
+STREAM_TUPLES, STREAM_SMALL = 2**20, 2**20    # a tenant of the online batch; of the others
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
 SESSION_TENANTS, SESSION_SLOTS, SESSION_AOT = 24, (8, 8), 8   # phase 12 (a), (b)
-SESSION_TUPLES = 2**24                       # appended over the op script, ~128 MB
+SESSION_TUPLES = 2**23                       # appended over the op script, ~64 MB
 SESSION_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
 SESSION_PARITY_CHUNKS = 64
 HHD_SESSION_TUPLES = 2**20                   # phase 12 (c): 0.5-2x this a tenant
-DP_SESSION_TUPLES, DP_SESSION_CAPACITY = 2**22, 2**19   # phase 12 (d)
+DP_SESSION_TUPLES, DP_SESSION_CAPACITY = 2**21, 2**19   # phase 12 (d)
 SERVICE_TENANTS, SERVICE_ASYNC_TENANTS, SERVICE_THREADS = 32, 8, 8   # phase 13
-SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**25, 2**19   # through the socket; 4 MB frames
+SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**24, 2**19   # through the socket; 4 MB frames
 SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
 SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
 MESH_PE_SHARDS, MESH_PRI, MESH_SEC = 8, 6, 2   # phase 14 (a): examples/distributed_ditto.py
 MESH_BINS, MESH_DOMAIN, MESH_CHUNK, MESH_CHUNKS, MESH_CAP = 384, 1 << 20, 6144, 16, 256
 MESH_LONG_TUPLES = 2**22                     # (a): the alpha-2 stream at X = 2
 MESH_ROUTE = (8, 16, 4096, 600)              # (b): shards, PEs, tuples a shard, capacity
-MESH_LANE_SHARDS, MESH_SESSION_TUPLES = 4, 2**22     # (c), (d)
+MESH_LANE_SHARDS, MESH_SESSION_TUPLES = 4, 2**21     # (c), (d)
 MESH_HHD_TENANTS, MESH_HHD_TUPLES = 4, 2**18         # (c): HHD on the meshed engine
 
 
@@ -765,7 +803,7 @@ def _tree_equal(a, b) -> bool:
 def stream_path(dev, stream_3) -> tuple[dict, dict]:
     """Phase 11: StreamEngine at serving size, every engine on the default
     obs bundle.  HISTO (512 bins, domain 2^20): an online batch of 8
-    tenants at Zipf alpha STREAM_ALPHAS, 2^21 - r_i tuples each (r_0 = 0,
+    tenants at Zipf alpha STREAM_ALPHAS, 2^20 - r_i tuples each (r_0 = 0,
     seven ragged tails), and a planned batch of 5 tenants with plans from
     make_static_plan on a 0.1% sample, STREAM_SMALL tuples each (3 pad
     lanes); HHD (depth 4, width 1024): 8 tenants at alpha 3, STREAM_SMALL
@@ -2291,11 +2329,11 @@ def lm_counts() -> dict:
 def reset_counts():
     """Every kernel's launch count to 0."""
     from repro_torch.kernels.cms_update import cms_update
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
     from repro_torch.kernels.route_accumulate import route_accumulate
     for kernel in (route_accumulate, cms_update, onehot_dispatch, onehot_combine,
-                   flash_attention):
+                   flash_attention, flash_attention_bwd):
         kernel.launches = 0
 
 
@@ -2783,7 +2821,8 @@ E_FLASH = (("gemma2", 4, 1024, 8, 4, 256, 0, 50.0, 1),
            ("phi3", 1, 2048, 32, 32, 96, 0, 0.0, 1))
 # (arch, layers run, prefill shapes, other fields cut); None = all of the
 # config's layers, nothing cut.  Float32 weights: deepseek ~2.34 GB a layer
-# (27 ~64 GB leave no room for the placed copies), gemma2 ~10.5 GB in all,
+# (27 ~64 GB leave no room for the placed copies; it runs 4, its phase took
+# 32 s at 8 with the script at 593 s of 600), gemma2 ~10.5 GB in all,
 # llama3.2-3b ~12.9 GB, starcoder2-15b ~1.5 GB a layer (40 ~63 GB),
 # mamba2-780m ~3.1 GB, phi-3-vision ~14.9 GB.  yi-6b runs 8 of its 32
 # layers: at full depth the script passed 600 s (the serve run's decode
@@ -2793,7 +2832,7 @@ E_FLASH = (("gemma2", 4, 1024, 8, 4, 256, 0, 50.0, 1),
 # ~15.6 B parameters, 31 GB: 16 experts in bfloat16 make a period 89 GB,
 # 4 in float32 62.6 GB before the MoE's gathered slot weights (~1.2 GB a
 # slot); top-2 and the 4 secondary slots are kept.
-E_CONFIGS = (("deepseek-v2-lite-16b", 8, ((4, 1024),), None),
+E_CONFIGS = (("deepseek-v2-lite-16b", 4, ((4, 1024),), None),
              ("gemma2-2b", None, ((4, 1024), (1, 5120)), None),
              ("llama3.2-3b", None, ((1, 1024),), None),
              ("yi-6b", 8, ((1, 1024),), None),
@@ -2979,18 +3018,21 @@ def placement_check(dev, model, params) -> dict:
     return rec
 
 
-def serve_cli_default(dev) -> dict:
+def serve_cli_default(dev, argv=("--full",)) -> dict:
     """Phase E (d): ``repro_torch.launch.serve.main(["--full"])``, the CLI
     at its default arch (llama3.2-3b) on the card, its output captured and
-    its requests recorded: every one returns 16 tokens."""
+    its requests recorded: every one returns 16 tokens.  Phase F runs it
+    at ``--arch whisper-base``.  The record names the arch the engine
+    served."""
     import contextlib
     import io
     from repro_torch.launch import serve
-    seen = []
+    seen, archs = [], set()
 
     class Recording(serve.DecodeEngine):
         def submit(self, req):
             seen.append(req)
+            archs.add(self.model.cfg.name)
             super().submit(req)
 
     out = io.StringIO()
@@ -3001,7 +3043,7 @@ def serve_cli_default(dev) -> dict:
         reset_counts()                    # ---- the main path from here
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            serve.main(["--full"])
+            serve.main(list(argv))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = lm_counts()              # ---- to here
@@ -3013,7 +3055,8 @@ def serve_cli_default(dev) -> dict:
     assert len(seen) == 8 and all(len(r.out) == 16 and r.done for r in seen), \
         [len(r.out) for r in seen]
     assert not any(counts.values()), counts     # a dense decode step launches none
-    return {"argv": ["--full"], "arch": E_CLI_ARCH, "output": line, "wall_s": wall_s,
+    (arch,) = archs
+    return {"argv": list(argv), "arch": arch, "output": line, "wall_s": wall_s,
             "launches": counts}
 
 
@@ -3146,6 +3189,618 @@ def lm_configs_path(dev) -> tuple[dict, dict]:
         rec["configs"].append({k: one[k] for k in ("arch", "layers", "prefill", "phase_s")})
     rec["flash_times"] = flash_times(dev)
     return rec, total
+
+
+# ------------------------------------------------------------------ phase F
+F_ARCH = "whisper-base"
+F_PREFILL = (4, 448)          # tokens; frames [4, encoder_len = 1500, 512]
+F_GREEDY = (2, 8, 16)         # requests, prompt tokens, new tokens
+F_PARITY_TOKENS = 64
+# (name, b, sq, sk, h, kv, dh, causal): the encoder's self-attention over
+# its 1500 frames (not a multiple of the 64-key tile) and the decoder's
+# cross-attention from 448 tokens to them
+F_FLASH = (("whisper_encoder", 4, 1500, 1500, 8, 8, 64, False),
+           ("whisper_cross", 4, 448, 1500, 8, 8, 64, False))
+
+
+def flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, dtype, q_scale=1):
+    """Seeded q [b, sq, h, dh] (times q_scale), k and v [b, sk, kvh, dh]."""
+    q = (q_scale * torch.randn((b, sq, h, dh), generator=gen, device=dev)).to(dtype)
+    k, v = (torch.randn((b, sk, kvh, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def check_flash_whisper(dev) -> dict:
+    """Phase F (a): the flash kernel at whisper's two shapes against its
+    plain version, bf16 and float32, one launch each; rtol = atol = 1e-5
+    (float32) or 2e-2 (bfloat16), as phase A."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = {}
+    for name, b, sq, sk, h, kvh, dh, causal in F_FLASH:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, dtype)
+            before = flash_attention.launches
+            got = dispatch.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1, name
+            want = ref.flash_attention(q, k, v, causal=causal)
+            diff = (got.double() - want.double()).abs()
+            key = f"{name}_{str(dtype).removeprefix('torch.')}"
+            err[key] = float(diff.max())
+            assert bool((diff <= tol * (1 + want.double().abs())).all()), \
+                f"flash_attention {key}: max |err| {err[key]}"
+            del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return err
+
+
+def whisper_batch(cfg, shape, dev, seed: int = SEED, labels: bool = False) -> dict:
+    """Seeded tokens of ``shape`` (and their next-token labels) and the stub
+    frontend's seeded frames [B, encoder_len, d_model]."""
+    from repro_torch.models import frontends
+    rng = np.random.default_rng(seed)
+    b, s = shape
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s + 1)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": toks[:, :-1], "frames": frontends.random_frames(cfg, gen, b)}
+    if labels:
+        batch["labels"] = toks[:, 1:]
+    return batch
+
+
+def greedy_with_memory(model, params, frames, prompts, new_tokens: int):
+    """A greedy decode whose cross-attention K/V come from ``encode`` of
+    ``frames``: prefill_cache over ``prompts`` [B, S], then ``new_tokens``
+    steps.  Returns the tokens [B, new_tokens] and the prompt's last logits."""
+    from repro_torch.models import whisper as W
+    from repro_torch.serve.engine import decode_tokens, prefill_cache
+    b, s = prompts.shape
+    memory = W.encode(model.cfg, params, frames)
+    cache = model.init_cache(params, b, s + new_tokens, memory=memory)
+    logits, cache = prefill_cache(model, params, prompts, cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = []
+    for i in range(new_tokens):
+        out.append(tok)
+        tok, cache = decode_tokens(model, params, tok, cache, s + i)
+    return torch.stack(out, dim=1), logits
+
+
+def whisper_layers(params, layers: int) -> dict:
+    """``params`` with the encoder and decoder stacks cut to their first
+    ``layers`` layers (views; the other leaves as they are)."""
+    first = lambda tree: ({k: first(v) for k, v in tree.items()}
+                          if isinstance(tree, dict) else tree[:layers])
+    return {k: first(v) if k in ("encoder", "decoder") else v for k, v in params.items()}
+
+
+def whisper_cpu_parity(dev, params_deep, layers: int = 2) -> dict:
+    """Phase F (e): whisper-base at full width with its first ``layers``
+    encoder and decoder layers, compute float32 with TF32 off, on the card
+    and on the CPU from the same weights: prefill logits on seeded frames
+    [1, 1500, 512] and tokens [1, F_PARITY_TOKENS] within rtol = atol = 1e-3
+    (float32 sums in another order), and identical greedy tokens of a
+    decode over encoded frames."""
+    from repro_torch.configs import get
+    from repro_torch.models import frontends, zoo
+    from repro_torch.models.transformer import tree_to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get(F_ARCH), num_layers=layers, encoder_layers=layers,
+                              compute_dtype="float32")
+    gpu_params = whisper_layers(params_deep, layers)
+    t0 = time.perf_counter()
+    cpu_params = tree_to(gpu_params, torch.device("cpu"))
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, F_PARITY_TOKENS)))
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 4)), dtype=torch.int32)
+    frames = frontends.random_frames(cfg, torch.Generator().manual_seed(SEED), 2)
+    outs = []
+    for where, params in ((dev, gpu_params), (torch.device("cpu"), cpu_params)):
+        model = zoo.build(cfg, device=where)
+        logits = model.prefill_fn(params, {"tokens": tokens.to(where),
+                                           "frames": frames[:1].to(where)})
+        greedy, _ = greedy_with_memory(model, params, frames.to(where),
+                                       prompts.to(where), 8)
+        outs.append((logits.cpu(), greedy.cpu()))
+    (l_gpu, t_gpu), (l_cpu, t_cpu) = outs
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-3, atol=1e-3)
+    assert torch.equal(t_gpu, t_cpu), (t_gpu, t_cpu)
+    return {"arch": cfg.name, "layers": [layers, layers], "compute_dtype": "float32",
+            "frames": cfg.encoder_len, "prefill_tokens": [1, F_PARITY_TOKENS],
+            "max_abs_logit_diff": float((l_gpu - l_cpu).abs().max()),
+            "greedy_tokens": t_gpu.tolist(), "host_s": time.perf_counter() - t0}
+
+
+def whisper_flash_times(dev) -> dict:
+    """Phase F (f): the flash kernel at whisper's two shapes, bf16, beside
+    SDPA at the same shape and the bound; CUDA events, in turns."""
+    from repro_torch.kernels import dispatch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, b, sq, sk, h, kvh, dh, causal in F_FLASH:
+        q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        turns = cuda_ms_turns({
+            "kernel": lambda: dispatch.flash_attention(q, k, v, causal=causal),
+            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)}, iters=50)
+        b_ms, b_by = flash_bound(q, k, v, causal, 0, 0.0)
+        out[name] = {"shape": f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} dh={dh} "
+                              f"{'causal' if causal else 'non-causal'} bfloat16",
+                     "ms": turns["kernel"], "library_ms": turns["sdpa"],
+                     "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_path(dev) -> tuple[dict, dict]:
+    """Phase F: whisper-base at full width and depth (6 + 6 layers, d 512,
+    8 x 64 heads), seeded random weights.  The main path, counted from 0:
+    prefill_fn on frames [4, 1500, 512] and tokens [4, 448] (finite logits;
+    flash once an encoder layer and twice a decoder layer, 18 a forward)
+    and a greedy decode of 2 requests whose cross K/V come from encode of
+    seeded frames (6 launches more); then the serve CLI at --arch
+    whisper-base, the card against the CPU, and flash times.  Returns the
+    record and the main path's launch counts."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    cfg = get(F_ARCH)
+    rec = {"flash_check_max_abs_err": check_flash_whisper(dev)}
+    model = zoo.build(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(model.generator(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = whisper_batch(cfg, F_PREFILL, dev)
+    n_req, n_prompt, n_new = F_GREEDY
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab, (n_req, n_prompt)), dtype=torch.int32, device=dev)
+    per_forward = whisper_flash_per_forward()
+
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    t0 = time.perf_counter()
+    logits = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    after_prefill = lm_counts()
+    greedy, last = greedy_with_memory(model, params, batch["frames"][:n_req], prompts, n_new)
+    torch.cuda.synchronize()
+    counts = lm_counts()                  # ---- to here
+    assert not any(pe_counts().values()), pe_counts()
+
+    assert logits.shape == (*F_PREFILL, cfg.vocab) and logits.dtype == cfg.cdtype
+    assert bool(torch.isfinite(logits).all()), "whisper prefill logits are not finite"
+    assert after_prefill == {"flash_attention": per_forward, "onehot_dispatch": 0,
+                             "onehot_combine": 0}, after_prefill
+    assert counts["flash_attention"] == per_forward + cfg.encoder_layers, counts
+    assert greedy.shape == (n_req, n_new) and bool(torch.isfinite(last).all())
+    assert bool(((greedy >= 0) & (greedy < cfg.vocab)).all())
+    del logits
+    ms = host_ms(lambda: model.prefill_fn(params, batch), calls=3)
+    b, s = F_PREFILL
+    rec.update({
+        "arch": cfg.name, "layers": [cfg.encoder_layers, cfg.num_layers],
+        "params_init_s": init_s, "prefill": {
+            "tokens": [b, s], "frames": cfg.encoder_len, "first_s": first_s,
+            "ms_per_forward": ms,
+            "positions_per_s": b * (cfg.encoder_len + s) / (ms * 1e-3),
+            "tokens_per_s": b * s / (ms * 1e-3)},
+        "greedy_with_memory": {"requests": n_req, "prompt_tokens": n_prompt,
+                               "new_tokens": n_new, "tokens": greedy.tolist()},
+        "launches": counts,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    rec["serve_cli"] = serve_cli_default(dev, ("--full", "--arch", F_ARCH))
+    torch.cuda.empty_cache()
+    rec["cpu_parity"] = whisper_cpu_parity(dev, params)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    rec["flash_times"] = whisper_flash_times(dev)
+    return rec, counts
+
+
+# ------------------------------------------------------------------ phase G
+# (name, b, sq, sk, h, kv, dh, causal, window, cap, q scale): llama3.2-3b's
+# training shape, gemma2's with its cap and with a window, whisper's two
+# (Sk = 1500 off the tile, Sq != Sk; the encoder's 1500 queries leave a
+# ragged last query tile of 28), q x 8 (peaked probabilities), and a cap
+# that bites: q x 4 under cap 5 puts the scores where 1 - tanh^2(s / cap)
+# averages ~0.6 (at cap 50 and unit q it is >= 0.994, so a backward without
+# the cap's derivative would pass there)
+G_BWD = (("llama", 1, 1024, 1024, 24, 8, 128, True, 0, 0.0, 1),
+         ("gemma2_cap50", 4, 1024, 1024, 8, 4, 256, True, 0, 50.0, 1),
+         ("gemma2_window256", 4, 1024, 1024, 8, 4, 256, True, 256, 50.0, 1),
+         ("whisper_encoder", 4, 1500, 1500, 8, 8, 64, False, 0, 0.0, 1),
+         ("whisper_cross", 4, 448, 1500, 8, 8, 64, False, 0, 0.0, 1),
+         ("llama_q_x8", 1, 1024, 1024, 24, 8, 128, True, 0, 0.0, 8),
+         ("gemma2_cap5_q_x4", 1, 1024, 1024, 8, 4, 256, True, 0, 5.0, 4))
+# Against the plain backward of float32 copies, each of dQ, dK and dV is held
+# to two bounds.  Element by element, |got - want| <= tol * (1 + max |want|)
+# (G_BWD_TOL): float32 sums in another order; bf16 rounds P and dS to bf16
+# before their products.  As a whole, ||got - want||_F / ||want||_F <= rel
+# (G_BWD_REL): the elementwise bound is never below tol and grows with the
+# largest value, so it can be as large as a typical element; rounding P, dS
+# and the outputs to bf16 gives a few 1e-3 of the norm, dropping whisper's
+# ragged last query tile (28 of 1500) from dK and dV ~sqrt(28 / 1500) = 0.14
+G_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+G_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+G_BWD_TIMED = ("llama", "whisper_encoder", "whisper_cross")
+G_WHISPER = (8, 448, 20)      # batch, tokens (frames: encoder_len), steps
+G_LLAMA = (4, (2, 1024), 8)   # layers of 28, batch shape, steps
+G_PARITY = (2, (2, 64))       # encoder and decoder layers, token shape
+G_CLI_STEPS = (4, 8)          # the launcher's run, then its resumption
+G_GATE = 1e-3                 # card vs CPU: max |a - b| / max |b| of any leaf
+
+
+def check_flash_bwd(dev) -> tuple[dict, dict]:
+    """Phase G (a): the backward kernel through FlashAttention's backward
+    against ref.flash_attention_bwd on float32 copies of the same inputs,
+    bf16 and float32, one launch each, held to G_BWD_TOL element by element
+    and to G_BWD_REL in norm.  Returns the max |err| of each case and its
+    relative norm error beside that bound; prints each reading beside its
+    bounds."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err, rel_err = {}, {}
+    for name, b, sq, sk, h, kvh, dh, causal, window, cap, q_scale in G_BWD:
+        for dtype, tol in G_BWD_TOL.items():
+            q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, dtype, q_scale)
+            do = torch.randn((b, sq, h, dh), generator=gen, device=dev).to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = flash_attention_bwd.launches
+            out = dispatch.flash_attention(*leaves, causal=causal, window=window,
+                                           softcap=cap)
+            got = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            assert flash_attention_bwd.launches == before + 1, name
+            want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                           causal=causal, window=window, softcap=cap)
+            for part, g, w in zip(("dq", "dk", "dv"), got, want):
+                assert g.dtype == dtype and g.shape == w.shape, (name, part)
+                delta = g.double() - w.double()
+                diff = float(delta.abs().max())
+                bound = tol * (1 + float(w.abs().max()))
+                rel = float(delta.norm() / w.double().norm())
+                key = f"{name}_{part}_{str(dtype).removeprefix('torch.')}"
+                err[key] = diff
+                rel_err[key] = {"rel": rel, "bound": G_BWD_REL[dtype]}
+                print(f"flash_attention_bwd {key}: max |err| {diff:.3e} (bound {bound:.3e}), "
+                      f"norm err {rel:.3e} (bound {G_BWD_REL[dtype]:.0e})", file=sys.stderr)
+                assert diff <= bound, f"flash_attention_bwd {key}: max |err| {diff} > {bound}"
+                assert rel <= G_BWD_REL[dtype], \
+                    f"flash_attention_bwd {key}: norm err {rel} > {G_BWD_REL[dtype]}"
+            del q, k, v, do, leaves, out, got, want
+    torch.cuda.empty_cache()
+    return err, rel_err
+
+
+def flash_bwd_bound(q, k, v, causal, window) -> tuple[float, str]:
+    """Bytes: q, k, v, o, dO and LSE read once, dQ, dK, dV written once.
+    Operations: the five products of FlashAttention-2's backward (S, dP,
+    dV, dK, dQ), 10 dh a kept pair, at the bf16 tensor-core rate."""
+    b, sq, h, dh = q.shape
+    pairs = flash_pairs(b, h, sq, k.shape[1], causal, window)
+    nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * q.element_size() \
+        + 4 * b * h * sq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10 * dh * pairs / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_flash_bwd(q, k, v, do, causal):
+    """The library's backward kernel at q [b, sq, h, dh], k, v [b, sk, kvh,
+    dh] and dO as a call that launches it alone: PyTorch's FlashAttention
+    forward (aten) once, outside the call, for its output and log-sum-exp,
+    then a closure over aten's flash backward with them (KV heads repeated
+    and every transpose made outside).  A yardstick only: the port never
+    calls it."""
+    h, kvh, dh = q.shape[2], k.shape[2], q.shape[3]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    scale = dh ** -0.5
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+        torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal, False,
+                                                           scale=scale)
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset,
+        scale=scale)
+
+
+def flash_bwd_times(dev) -> dict:
+    """Phase G: the backward kernel (the wrapper's call: Delta, dK/dV and dQ)
+    at G_BWD_TIMED's shapes in bf16, beside PyTorch's FlashAttention
+    backward kernel at the same shape (``sdpa_flash_bwd``, aten called
+    directly: no autograd) in turns; its plain version and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, b, sq, sk, h, kvh, dh, causal, window, cap, _ in G_BWD:
+        if name not in G_BWD_TIMED:
+            continue
+        q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, torch.bfloat16)
+        do = torch.randn((b, sq, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                                 return_lse=True)
+        fns = {"kernel": lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                                     window=window, softcap=cap),
+               "sdpa": sdpa_flash_bwd(q, k, v, do, causal)}
+        turns = cuda_ms_turns(fns, iters=20)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, do, causal=causal,
+                                                           window=window, softcap=cap),
+                           iters=5, warmup=1)
+        b_ms, b_by = flash_bwd_bound(q, k, v, causal, window)
+        out[name] = {"shape": f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} dh={dh} "
+                              f"{'causal' if causal else 'non-causal'} bfloat16",
+                     "ms": turns["kernel"], "library_ms": turns["sdpa"],
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v, do, o, lse, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_steps(model, params, batch, steps: int, schedule):
+    """``steps`` of make_train_step (adamw at ``schedule``, clip 1.0) on
+    one fixed batch.  Returns the last state, the losses and the host
+    seconds of each step (each ends in reading its loss)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.state import TrainState
+    opt = adamw(schedule)
+    state = TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
+                       params=params, opt_state=opt.init(params))
+    step = make_train_step(model, opt)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return state, losses, secs, step
+
+
+def bwd_share(step, state, batch) -> dict:
+    """One more step under torch.profiler: the card's time in the backward
+    kernel's three kernels against the step's wall time under the profiler
+    (null where the profiler recorded none of them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = ("dkdv_kernel", "dq_kernel", "delta_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    bwd_ms = 1e-3 * sum(e.self_device_time_total for e in kernels
+                        if any(n in e.key for n in names))
+    device_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    return {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
+            "flash_bwd_ms": bwd_ms if bwd_ms else None,
+            "flash_bwd_share_of_step": bwd_ms / wall_ms if bwd_ms else None}
+
+
+def train_run(dev, cfg, batch, steps: int, per_step: int, schedule) -> tuple[dict, dict]:
+    """Phase G (b), (c): ``steps`` training steps of ``cfg`` at seeded
+    random weights on one fixed batch, the main path counted from 0: the
+    forward and backward kernels ``per_step`` times a step each, the loss
+    falls and every parameter stays finite.  Then ms a step (the steps
+    after the first), tokens/s and the backward kernel's share of a step."""
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+    model = zoo.build(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_params(model.generator(SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    reset_counts()                        # ---- the main path from here
+    state, losses, secs, step = train_steps(model, params, batch, steps, schedule)
+    torch.cuda.synchronize()
+    counts = train_counts()               # ---- to here
+    assert counts == {"flash_attention": steps * per_step,
+                      "flash_attention_bwd": steps * per_step}, counts
+    assert losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}"
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)), \
+        f"{cfg.name}: a parameter is not finite"
+    step_s = sum(secs[1:]) / (steps - 1)
+    b, s = batch["tokens"].shape
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "batch": [b, s], "steps": steps, "losses": losses,
+           "first_step_s": secs[0], "ms_per_step": 1e3 * step_s,
+           "tokens_per_s": b * s / step_s, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if "frames" in batch:
+        rec["frames"] = batch["frames"].shape[1]
+    rec["profile"] = bwd_share(step, state, batch)
+    return rec, counts
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
+
+
+def rel_diff(got, want) -> float:
+    """max over the leaves of max |got - want| / max |want|."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        w = w.detach().cpu().float()
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g.detach().cpu().float() - w).abs().max()) / scale)
+    return worst
+
+
+def train_cpu_parity(dev, params_deep) -> dict:
+    """Phase G (d): one adamw step (constant max_lr, clip 1.0) of
+    whisper-base's first G_PARITY layers in float32 (TF32 off) on the card
+    and on the CPU, from the same weights and batch: the loss within
+    1e-3 (relative), and the gradients and the params after the step within
+    G_GATE (max |card - CPU| / max |CPU| of any leaf)."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.state import TrainState
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, shape = G_PARITY
+    cfg = dataclasses.replace(get(F_ARCH), num_layers=layers, encoder_layers=layers,
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    gpu_params = tree_map(lambda t: t.clone(), whisper_layers(params_deep, layers))
+    cpu = torch.device("cpu")
+    batch = whisper_batch(cfg, shape, cpu, seed=SEED + 7, labels=True)
+    opt = adamw(constant(cfg.max_lr))
+    outs = []
+    for where, params in ((dev, gpu_params), (cpu, tree_to(gpu_params, cpu))):
+        model = zoo.build(cfg, device=where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = model.loss_fn(leaves, b)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, leaves)
+        state = TrainState(step=torch.zeros((), dtype=torch.int32, device=where),
+                           params=params, opt_state=opt.init(params))
+        new, m = make_train_step(model, opt)(state, b)
+        outs.append((float(m["loss"]), tree_to(grads, cpu), tree_to(new.params, cpu)))
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = outs
+    grad_diff, param_diff = rel_diff(g_gpu, g_cpu), rel_diff(p_gpu, p_cpu)
+    assert abs(l_gpu - l_cpu) <= 1e-3 * max(1.0, abs(l_cpu)), (l_gpu, l_cpu)
+    assert grad_diff <= G_GATE, f"gradients differ by {grad_diff} > {G_GATE}"
+    assert param_diff <= G_GATE, f"params after the step differ by {param_diff} > {G_GATE}"
+    return {"arch": cfg.name, "layers": [layers, layers], "compute_dtype": "float32",
+            "tokens": list(shape), "frames": cfg.encoder_len, "loss_card": l_gpu,
+            "loss_cpu": l_cpu, "max_rel_grad_diff": grad_diff,
+            "max_rel_param_diff_after_step": param_diff, "gate": G_GATE,
+            "host_s": time.perf_counter() - t0}
+
+
+def train_cli(dev) -> tuple[dict, dict]:
+    """Phase G (e): ``repro_torch.launch.train.main`` at --arch
+    whisper-base with a checkpoint directory under build/, G_CLI_STEPS[0]
+    steps, then the same command resumed to G_CLI_STEPS[1] from its
+    checkpoint: the second run takes the remaining steps only."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    first, last = G_CLI_STEPS
+    per_step = whisper_flash_per_forward()
+    out = io.StringIO()
+    runs = []
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        for steps in (first, last):
+            argv = ["--arch", F_ARCH, "--steps", str(steps), "--ckpt", d]
+            torch.cuda.synchronize()
+            reset_counts()                # ---- the main path from here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                state = train.main(argv)
+            torch.cuda.synchronize()
+            counts = train_counts()       # ---- to here
+            runs.append({"argv": argv, "wall_s": time.perf_counter() - t0,
+                         "step": int(state.step), "launches": counts})
+            assert int(state.step) == steps
+            assert CheckpointManager(d).latest_step() == steps
+            assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
+            del state
+    for run, ran in zip(runs, (first, last - first)):     # the resumption runs the rest
+        assert run["launches"] == {"flash_attention": ran * per_step,
+                                   "flash_attention_bwd": ran * per_step}, run
+    text = out.getvalue()
+    assert f"finished at step {first}" in text and f"finished at step {last}" in text, text
+    total = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    return {"runs": runs, "output": text.strip().splitlines()}, total
+
+
+def whisper_flash_per_forward() -> int:
+    """Flash launches a whisper-base forward: one an encoder layer, two (self
+    and cross) a decoder layer, 18 at 6 + 6 layers."""
+    from repro_torch.configs import get
+    cfg = get(F_ARCH)
+    return cfg.encoder_layers + 2 * cfg.num_layers
+
+
+def training_path(dev) -> tuple[dict, dict, dict]:
+    """Phase G: the backward kernel against its plain version, training
+    whisper-base and llama3.2-3b (4 of 28 layers) on the card, one step
+    against the CPU, the launcher with a resumption, and the backward
+    kernel's times.  Returns the record, the main paths' launch counts
+    (summed) and the kernels-line entry of flash_attention_bwd."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    from repro_torch.optim import warmup_cosine
+    rec = dict(zip(("bwd_check_max_abs_err", "bwd_check_norm_err"), check_flash_bwd(dev)))
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    cfg = get(F_ARCH)
+    b, s, steps = G_WHISPER
+    t0 = time.perf_counter()
+    one, counts = train_run(dev, cfg, whisper_batch(cfg, (b, s), dev, labels=True), steps,
+                            whisper_flash_per_forward(),
+                            warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
+    one["phase_s"] = time.perf_counter() - t0
+    rec["whisper"] = one
+    total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+
+    # the CPU comparison takes fresh weights of its own layers
+    model = zoo.build(get(F_ARCH), device=dev)
+    rec["cpu_parity"] = train_cpu_parity(dev, model.init_params(model.generator(SEED)))
+    del model
+    torch.cuda.empty_cache()
+
+    layers, shape, steps = G_LLAMA
+    cfg = dataclasses.replace(get("llama3.2-3b"), num_layers=layers)
+    batch = prefill_batch(cfg, (shape[0], shape[1] + 1), dev)
+    batch = {"tokens": batch["tokens"][:, :-1], "labels": batch["tokens"][:, 1:]}
+    t0 = time.perf_counter()
+    one, counts = train_run(dev, cfg, batch, steps, layers,
+                            warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
+    one["phase_s"] = time.perf_counter() - t0
+    one["of_layers"] = get("llama3.2-3b").num_layers
+    rec["llama"] = one
+    total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+
+    rec["train_cli"], counts = train_cli(dev)
+    total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+
+    times = flash_bwd_times(dev)
+    rec["flash_bwd_times"] = times
+    main = times["llama"]
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84 (its gradient; the JAX "
+                    "package differentiates sdpa_chunked with jax.grad, no Pallas backward)",
+        "launches": total["flash_attention_bwd"],
+        "max_abs_err": max(rec["bwd_check_max_abs_err"].values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": main["shape"] + "; *_whisper_encoder and *_whisper_cross at whisper's",
+        "library_call": "aten._scaled_dot_product_flash_attention_backward called directly "
+                        "(is_causal as the kernel's), KV heads repeated outside the timing",
+        **{f"{key}_{name}": times[name][key] for name in G_BWD_TIMED[1:]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    return rec, total, entry
 
 
 def main() -> int:
@@ -3489,6 +4144,27 @@ def main() -> int:
                        "and 0); *_mla: B=4 S=1024 H=KV=16 dh=192; *_jamba: B=1 S=1024 "
                        "H=64 KV=8 dh=128; *_phi3: B=1 S=2048 H=KV=32 dh=96 (in the 128 "
                        "template); library_ms_* SDPA without a cap")
+
+    # ---- F. whisper-base, the encoder-decoder family
+    t0 = time.perf_counter()
+    rec, counts = whisper_path(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print("whisper", json.dumps(rec))
+    flash["launches"] += counts["flash_attention"]
+    times = rec["flash_times"]
+    flash.update({f"{key}_{name}": times[name][key] for name in times
+                  for key in ("ms", "bound_ms", "bound_by", "library_ms")})
+    flash["max_abs_err_whisper"] = max(rec["flash_check_max_abs_err"].values())
+    flash["shape"] += ("; *_whisper_encoder: B=4 S=1500 H=KV=8 dh=64 non-causal; "
+                       "*_whisper_cross: B=4 Sq=448 Sk=1500 H=KV=8 dh=64 non-causal")
+
+    # ---- G. training: the backward kernel, whisper-base and llama3.2-3b
+    t0 = time.perf_counter()
+    rec, counts, bwd = training_path(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print("training", json.dumps(rec))
+    flash["launches"] += counts["flash_attention"]
+    kernels.append(bwd)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,18 +1,18 @@
 """Architecture configs the port runs.  ``get(name)`` -> CONFIG (full
-size), ``get_reduced(name)`` -> REDUCED (CPU scale).  The JAX package has
-ten; the port has its nine decoder-only ones (dense, MoE, MLA, SSM,
-hybrid and VLM).  The encoder-decoder one, whisper-base, needs model code
-the port has not yet (ROADMAP.md §1)."""
+size), ``get_reduced(name)`` -> REDUCED (CPU scale).  The JAX package's
+ten: dense, MoE, MLA, SSM, hybrid, VLM and the encoder-decoder
+whisper-base."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["llama3_2_3b", "starcoder2_15b", "gemma2_2b", "yi_6b",
+ARCH_IDS = ["whisper_base", "llama3_2_3b", "starcoder2_15b", "gemma2_2b", "yi_6b",
             "phi3_vision_4_2b", "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b",
             "mamba2_780m", "jamba_1_5_large_398b"]
 
 # CLI/--arch aliases (the dashed ids)
 ALIASES = {
+    "whisper-base": "whisper_base",
     "llama3.2-3b": "llama3_2_3b",
     "starcoder2-15b": "starcoder2_15b",
     "gemma2-2b": "gemma2_2b",

@@ -1,9 +1,10 @@
 """Architecture configuration schema of the port's language models.
 
-The fields of ``repro/configs/base.py::ArchConfig`` that the decoder-only
+The fields of ``repro/configs/base.py::ArchConfig`` that the port's
 families read (attention, MLA and Mamba-2 mixers; dense, MoE and no FFN;
-the VLM's patch frontend), with torch dtypes behind ``cdtype`` and
-``pdtype``.  ``moe_impl`` is gone: its three values compute one function
+the VLM's patch frontend; whisper's encoder and learned decoder positions;
+the trainer's peak learning rate and optimizer), with torch dtypes behind
+``cdtype`` and ``pdtype``.  ``moe_impl`` is gone: its three values compute one function
 in the JAX package, and the port has one realization (the tensor's device
 picks plain PyTorch or the CUDA kernels).
 """
@@ -57,8 +58,10 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
-    # encoder-decoder (whisper; its model is not ported yet)
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
     encoder_len: int = 0              # e.g. 1500 audio frames
+    max_positions: int = 65536        # learned-position table (whisper dec)
     # VLM stub frontend (phi-3-vision)
     num_patches: int = 0
     patch_embed_dim: int = 0
@@ -70,6 +73,9 @@ class ArchConfig:
     tie_embeddings: bool = True
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # training
+    max_lr: float = 3e-4
+    optimizer: str = "adamw"          # adamw|adamw8bit
     # which serve shapes make sense (sub-quadratic archs only for long ctx)
     supports_long_context: bool = False
 

@@ -3,8 +3,7 @@ d_ff=24576, vocab=65536; Mamba+attention 1:7 interleave (one attention
 layer per 8-layer period, position 4, as in Jamba), MoE 16e top-2 on every
 other layer.  Ditto skew-oblivious expert replication ON.
 [arXiv:2403.19887; hf:ai21labs/AI21-Jamba-1.5-Large]  A copy of the JAX
-package's config (its ``optimizer="adamw8bit"`` belongs to training, which
-the port has not yet).
+package's config.
 
 Parameter accounting (~398B total, ~94B active):
   36 MoE layers x 16e x 3 x 8192 x 24576  = 348.4B
@@ -29,6 +28,7 @@ CONFIG = ArchConfig(
     d_state=128, ssm_expand=2, ssm_head_dim=64, ssm_chunk=256,
     tie_embeddings=True, norm_eps=1e-6,
     supports_long_context=True,
+    optimizer="adamw8bit",
 )
 
 REDUCED = ArchConfig(
@@ -41,4 +41,5 @@ REDUCED = ArchConfig(
     d_state=16, ssm_expand=2, ssm_head_dim=16, ssm_chunk=16,
     compute_dtype="float32",
     supports_long_context=True,
+    optimizer="adamw8bit",
 )

@@ -1,17 +1,29 @@
-"""Chunked tuple streams for the Ditto executor.
+"""Input pipeline: chunked tuple streams for the Ditto executor and token
+batches for LM training.
 
-A copy of ``TupleStream``, ``chunk_stream`` and ``pad_tail_chunk`` from
-``repro/data/pipeline.py`` (numpy only).  The executor scans fixed-size
-chunks (the paper's profiling window / channel beat); with
+A copy of ``repro/data/pipeline.py`` (numpy only).  The executor scans
+fixed-size chunks (the paper's profiling window / channel beat); with
 ``pad_tail=True`` the ragged tail becomes a masked final chunk that the
-executor's validity-mask path treats as an exact no-op.
+executor's validity-mask path treats as an exact no-op.  The training
+half: ``write_corpus`` and ``ArrayRecordCorpus`` (a record-per-array file
+with the array_record access contract; the same bytes as the JAX
+package's, so either reads the other's files) and ``token_batches``
+(deterministic synthetic LM batches, sharded by host).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+import struct
+import zlib
+from pathlib import Path
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+_CORPUS_MAGIC = b"DCRP\x01\x00\x00\x00"   # 8-byte file header: magic + v1
+_CORPUS_FRAME = struct.Struct("<II")      # record length, crc32(record)
+_CORPUS_HEAD = struct.Struct("<I")        # json header length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +87,117 @@ def pad_tail_chunk(tail: np.ndarray, chunk_size: int,
     padded = np.concatenate(
         [tail, np.full((pad, *tail.shape[1:]), pad_key, tail.dtype)], axis=0)
     return padded, mask
+
+
+def write_corpus(path, records: Iterable[np.ndarray]) -> int:
+    """Write a record-per-array corpus file; returns the record count.
+
+    Layout: 8-byte magic, then per record ``[u32 len][u32 crc32(body)]``
+    with ``body = [u32 hdr_len][JSON {"dtype","shape"}][C-order bytes]``
+    -- the WAL frame, reused.  The file is written to a temp sibling and
+    atomically renamed, so a corpus either exists whole or not at all
+    (readers never see a torn tail; unlike the WAL there is no
+    tolerant-truncation mode)."""
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    n = 0
+    with open(tmp, "wb") as f:
+        f.write(_CORPUS_MAGIC)
+        for a in records:
+            a = np.ascontiguousarray(a)
+            head = json.dumps({"dtype": a.dtype.str,
+                               "shape": list(a.shape)},
+                              separators=(",", ":")).encode()
+            body = _CORPUS_HEAD.pack(len(head)) + head + a.tobytes()
+            f.write(_CORPUS_FRAME.pack(len(body), zlib.crc32(body)) + body)
+            n += 1
+    tmp.replace(path)
+    return n
+
+
+class ArrayRecordCorpus:
+    """File-backed record container with the array_record access
+    contract: ``len(corpus)``, random-access ``corpus.read(indices)`` /
+    ``corpus[i]``, and sequential ``iter(corpus)``.
+
+    The offset index is built by one forward scan at open (frames are
+    length-prefixed, so the scan reads headers only); records decode
+    lazily on access and every access CRC-checks its frame -- a corrupt
+    record raises ``ValueError`` instead of returning garbage."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self._f = open(self.path, "rb")
+        magic = self._f.read(len(_CORPUS_MAGIC))
+        if magic != _CORPUS_MAGIC:
+            raise ValueError(f"{self.path}: not a corpus file "
+                             f"(magic {magic!r})")
+        size = self.path.stat().st_size
+        self._offsets: List[Tuple[int, int, int]] = []  # (off, len, crc)
+        pos = len(_CORPUS_MAGIC)
+        while pos < size:
+            hdr = self._f.read(_CORPUS_FRAME.size)
+            if len(hdr) < _CORPUS_FRAME.size:
+                raise ValueError(f"{self.path}: torn frame header at "
+                                 f"byte {pos}")
+            blen, crc = _CORPUS_FRAME.unpack(hdr)
+            body_off = pos + _CORPUS_FRAME.size
+            if body_off + blen > size:
+                raise ValueError(f"{self.path}: record at byte {pos} "
+                                 f"overruns the file")
+            self._offsets.append((body_off, blen, crc))
+            pos = body_off + blen
+            self._f.seek(pos)
+
+    def __len__(self) -> int:
+        return len(self._offsets)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        off, blen, crc = self._offsets[i]
+        self._f.seek(off)
+        body = self._f.read(blen)
+        if zlib.crc32(body) != crc:
+            raise ValueError(f"{self.path}: record {i} failed its CRC")
+        (hlen,) = _CORPUS_HEAD.unpack_from(body, 0)
+        meta = json.loads(body[_CORPUS_HEAD.size:_CORPUS_HEAD.size + hlen])
+        return np.frombuffer(
+            body[_CORPUS_HEAD.size + hlen:],
+            dtype=np.dtype(meta["dtype"])).reshape(meta["shape"]).copy()
+
+    def read(self, indices: Sequence[int]) -> List[np.ndarray]:
+        """Random-access batch read (the array_record idiom)."""
+        return [self[int(i)] for i in indices]
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(len(self)):
+            yield self[i]
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self) -> "ArrayRecordCorpus":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def token_batches(global_batch: int, seq_len: int, vocab: int,
+                  num_hosts: int = 1, host_id: int = 0,
+                  seed: int = 0) -> Iterator[dict]:
+    """Deterministic synthetic LM batches, sharded by host.
+
+    Yields {'tokens': [B_host, S] int32, 'targets': [B_host, S] int32}.
+    Targets are tokens shifted by one (next-token LM).  Deterministic in
+    (seed, step, host) so restarts resume bit-identically mid-epoch -- the
+    property elastic checkpoint-restore relies on.
+    """
+    assert global_batch % num_hosts == 0
+    b_host = global_batch // num_hosts
+    step = 0
+    while True:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, step, host_id]))
+        toks = rng.integers(0, vocab, size=(b_host, seq_len + 1), dtype=np.int32)
+        yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        step += 1

@@ -123,6 +123,46 @@ def lm_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
     return params
 
 
+def whisper_params_from_numpy(cfg, tree: Mapping, device="cuda") -> dict:
+    """Whisper's params (``repro.models.whisper.init_params`` layout: the
+    ``encoder`` and ``decoder`` trees stacked over their layers, ``embed``,
+    ``pos_dec``, ``enc_norm`` and ``dec_norm``) from a nested dict of numpy
+    arrays.  Leaves keep their dtypes.  Raises if the tree does not fit
+    ``cfg``: its top-level keys, every encoder leaf stacked over
+    ``cfg.encoder_layers`` and decoder leaf over ``cfg.num_layers``, and the
+    embedding and position tables' shapes."""
+    device = resolve_device(device)
+    params = tree_from_numpy(tree, device)
+    keys = {"embed", "pos_dec", "encoder", "enc_norm", "decoder", "dec_norm"}
+    if set(params) != keys:
+        raise ValueError(f"{cfg.name}: keys {sorted(params)} are not {sorted(keys)}")
+    for part, layers in (("encoder", cfg.encoder_layers), ("decoder", cfg.num_layers)):
+        bad = [t for t in _leaves(params[part]) if t.shape[:1] != (layers,)]
+        if bad:
+            raise ValueError(f"{cfg.name}: {part} leaves must be stacked over "
+                             f"{layers} layers, got {tuple(bad[0].shape)}")
+    for name, got, want in (
+            ("embedding", params["embed"]["emb"].shape, (cfg.padded_vocab, cfg.d_model)),
+            ("pos_dec", params["pos_dec"].shape, (cfg.max_positions, cfg.d_model))):
+        if tuple(got) != want:
+            raise ValueError(f"{cfg.name}: {name} {tuple(got)} is not {want}")
+    return params
+
+
+def whisper_cache_from_numpy(self_k, self_v, cross_k, cross_v, device="cuda"):
+    """The port's ``WhisperCache`` from numpy copies of a JAX one's leaves:
+    the self-attention ``KVCache`` k and v [layers, B, max_len, KV, dh] and
+    the cross-attention K and V [layers, B, F, KV, dh]."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.whisper import WhisperCache
+    device = resolve_device(device)
+    k, v, ck, cv = (_leaf_tensor(a, device) for a in (self_k, self_v, cross_k, cross_v))
+    if k.shape != v.shape or ck.shape != cv.shape or k.shape[:2] != ck.shape[:2]:
+        raise ValueError(f"cache leaves disagree: self {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}, cross {tuple(ck.shape)} / {tuple(cv.shape)}")
+    return WhisperCache(self_kv=KVCache(k=k, v=v), cross_k=ck, cross_v=cv)
+
+
 def _leaves(tree):
     if isinstance(tree, Mapping):
         return [leaf for v in tree.values() for leaf in _leaves(v)]

@@ -20,7 +20,10 @@
 // epilogue writes acc / max(l, 1e-20).
 //
 // The entry routes by dtype: bfloat16 (the model's prefill) takes the
-// tensor-core kernel, float32 the CUDA-core kernel.
+// tensor-core kernel, float32 the CUDA-core kernel.  Either writes each
+// row's float32 log-sum-exp when given a buffer for it (training keeps it
+// for flash_attention_bwd.cu); inference passes null and skips the store.
+// The tensor-core helpers are shared with the backward in flash_common.cuh.
 //
 // bfloat16, tensor cores (namespace tc).  Bound: operations.  At the
 // prefill shape (B=4, S=1024, H=16, dh=128, causal) QK^T and PV are 17.2
@@ -76,115 +79,23 @@
 // Row max and row sum reduce over the 16 lanes that share a row with xor
 // shuffles; m, l and acc stay in float32 registers; a kept score is scaled
 // and then capped (cap > 0), a masked one is -1e30, as in Pallas.
+#include "flash_common.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
-#include <limits>
 
 namespace {
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace flash_common;
 constexpr int kWarps = 4;      // a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 64;        // keys a tile
 constexpr int kStages = 2;     // K/V ring depth
-constexpr float kMasked = -std::numeric_limits<float>::infinity();  // exp2 -> 0
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of 16-byte chunk `c` of row `r` in a [rows][D] bf16 tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// The swizzled column offset of chunk 8 * blk + c7 (c7 < 8) in a row r
-// with r % 8 = mr: blk stays, the low three bits take the xor.  ldmatrix
-// lanes address rows with a fixed r % 8, so each lane keeps four such
-// offsets (c7 = 2i + b) in registers and the rest is compile-time.
-__device__ __forceinline__ int chunk_off(int c7, int mr) { return (c7 ^ mr) << 3; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU (relative error ~2^-22; 2^-inf = +0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [r0, r0 + kRows) of one head into a swizzled [kRows][D] tile, zero
-// past `limit` rows and past dh columns; `stride` is heads * dh.  With
-// `vec` by cp.async in 16-byte pieces (the caller commits and waits), else
-// element by element.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int r0, int limit,
-                                          int dh, bool vec) {
-  constexpr int kChunks = D / 8;
-  static_assert(kRows * kChunks % kThreads == 0, "whole passes of the block");
-  if (vec) {
-#pragma unroll
-    for (int pass = 0; pass < kRows * kChunks / kThreads; ++pass) {
-      const int i = pass * kThreads + threadIdx.x;
-      const int r = i / kChunks;
-      const int c = i % kChunks;
-      const bool full = r0 + r < limit && c * 8 < dh;
-      const bf16* from = full ? src + (r0 + r) * stride + c * 8 : src;
-      cp_async16(dst + swz<D>(r, c), from, full);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      bf16 x = __float2bfloat16(0.0f);
-      if (r0 + r < limit && c < dh) x = src[(r0 + r) * stride + c];
-      dst[swz<D>(r, c >> 3) + (c & 7)] = x;
-    }
-  }
-}
 
 // Two 16-row m-tiles a warp, so each K and V fragment feeds two mma; one
 // at dh 256, where the accumulators of two would not fit in registers.
@@ -199,7 +110,8 @@ struct Layout {
 template <int D, bool kCapped>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int sq,
                   int sk, int heads, int kv_heads, int dh, float score_log2,
                   float cap_in, float cap, int causal, int window, int vec) {
   // score_log2 takes a score as the softmax sees it into log2 units:
@@ -258,11 +170,11 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int kv_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kv_begin = (q0 - window + 1) / kBK;
 
-  load_tile<D, kBQ>(qs, qb, q_stride, q0, sq, dh, vec);
+  load_tile<D, kBQ, kThreads>(qs, qb, q_stride, q0, sq, dh, vec);
   cp_commit();
   if (kv_begin < kv_end) {
-    load_tile<D, kBK>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
-    load_tile<D, kBK>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
+    load_tile<D, kBK, kThreads>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
+    load_tile<D, kBK, kThreads>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
   }
   cp_commit();
   cp_wait<1>();       // Q has landed (the first tile may still be in flight)
@@ -283,8 +195,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // prefetch the next tile into the stage the previous tile freed
     if (tile + 1 < kv_end) {
       const int ns = (it + 1) % kStages;
-      load_tile<D, kBK>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
-      load_tile<D, kBK>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
+      load_tile<D, kBK, kThreads>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
+      load_tile<D, kBK, kThreads>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
     }
     cp_commit();
     cp_wait<1>();
@@ -379,12 +291,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         // P's A fragment for keys 16kk..+15 is S's n-tiles 2kk and 2kk+1
         uint32_t a[kMT][4];
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-          a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-          a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-          a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-        }
+        for (int mt = 0; mt < kMT; ++mt) c_to_a(a[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
         for (int j = 0; j < kChunks; j += 2) {
           uint32_t bv[4];
@@ -411,6 +318,12 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       inv[r] = 1.0f / fmaxf(sum, 1e-20f);
+      // the row's log-sum-exp of the scores as the softmax takes them, in
+      // natural units (m is in log2 units); +inf for a row with no kept key
+      const int lrow = wq0 + 16 * mt + g + 8 * r;
+      if (lse != nullptr && tq == 0 && lrow < sq)
+        lse[static_cast<long long>(bh) * sq + lrow] =
+            sum > 0.0f ? (m[mt][r] + log2f(sum)) * kLn2 : INFINITY;
     }
     const int row = wr0 + 16 * mt + g;
 #pragma unroll
@@ -442,7 +355,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, bool kCapped>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
                    int causal, int window, float cap, cudaStream_t stream) {
   using L = Layout<D>;
@@ -456,32 +369,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * heads, (sq + L::kBQ - 1) / L::kBQ);
   flash_bf16_kernel<D, kCapped><<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, heads, kv_heads, dh, kCapped ? kLog2e : scale * kLog2e,
+      static_cast<bf16*>(o), lse, sq, sk, heads, kv_heads, dh,
+      kCapped ? kLog2e : scale * kLog2e,
       kCapped ? scale / cap : 0.0f, cap, causal, window, vec);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_cap(const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t launch_cap(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                        int sq, int sk, int heads, int kv_heads, int dh, float scale,
                        int causal, int window, float cap, cudaStream_t stream) {
   if (cap > 0.0f)
-    return launch<D, true>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+    return launch<D, true>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                            window, cap, stream);
-  return launch<D, false>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+  return launch<D, false>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                           window, cap, stream);
 }
 
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                       int sq, int sk, int heads, int kv_heads, int dh, float scale,
                       int causal, int window, float cap, cudaStream_t stream) {
   if (dh <= 64)
-    return launch_cap<64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+    return launch_cap<64>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                           window, cap, stream);
   if (dh <= 128)
-    return launch_cap<128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+    return launch_cap<128>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                            window, cap, stream);
-  return launch_cap<256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+  return launch_cap<256>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                          window, cap, stream);
 }
 
@@ -534,7 +448,8 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride, const T* s
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+             int sq, int sk,
              int heads, int kv_heads, int dh, float scale, int causal,
              int window, float cap) {
   constexpr int kCols = D / 16;
@@ -649,6 +564,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(bh) * sq + row] = l[i] > 0.0f ? m[i] + logf(l[i]) : INFINITY;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = tx + 16 * j;
@@ -658,7 +575,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
                    int causal, int window, float cap, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
@@ -668,21 +585,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * heads, (sq + kBQ - 1) / kBQ);
   flash_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, heads, kv_heads, dh, scale, causal, window, cap);
+      static_cast<T*>(o), lse, sq, sk, heads, kv_heads, dh, scale, causal, window, cap);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                       int sq, int sk, int heads, int kv_heads, int dh, float scale,
                       int causal, int window, float cap, cudaStream_t stream) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+    return launch<T, 64>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                          window, cap, stream);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+    return launch<T, 128>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                           window, cap, stream);
-  return launch<T, 256>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
+  return launch<T, 256>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
                         window, cap, stream);
 }
 
@@ -693,17 +610,20 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, int 
 // q, o: [b, sq, heads, dh]; k, v: [b, sk, kv_heads, dh], all contiguous, of
 // float32 (is_bf16 = 0: CUDA cores) or bfloat16 (is_bf16 = 1: tensor
 // cores); dh <= 256; heads a multiple of kv_heads; window <= 0 means none;
-// softcap <= 0 means none.  Returns the CUDA error.
-extern "C" int flash_attention(void* o, const void* q, const void* k, const void* v,
+// softcap <= 0 means none.  lse, if not null, receives each row's float32
+// log-sum-exp [b, heads, sq] for the backward (flash_attention_bwd.cu).
+// Returns the CUDA error.
+extern "C" int flash_attention(void* o, void* lse, const void* q, const void* k, const void* v,
                                int b, int sq, int sk, int heads, int kv_heads,
                                int dh, float scale, int causal, int window,
                                float softcap, int is_bf16, void* stream) {
   if (b <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_out = static_cast<float*>(lse);
   cudaError_t err =
-      is_bf16 ? tc::launch_dh(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                              window, softcap, s)
-              : f32::launch_dh<float>(q, k, v, o, b, sq, sk, heads, kv_heads, dh, scale,
-                                      causal, window, softcap, s);
+      is_bf16 ? tc::launch_dh(q, k, v, o, lse_out, b, sq, sk, heads, kv_heads, dh, scale,
+                              causal, window, softcap, s)
+              : f32::launch_dh<float>(q, k, v, o, lse_out, b, sq, sk, heads, kv_heads, dh,
+                                      scale, causal, window, softcap, s);
   return static_cast<int>(err);
 }

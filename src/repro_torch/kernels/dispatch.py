@@ -7,6 +7,13 @@ selection: no environment variable, no automatic pick, no fallback.
 
 The two PE updates fold into the carried tensor IN PLACE and return it;
 the MoE pack/unpack and attention return new tensors.
+
+Gradients: on the CPU the plain versions are differentiable PyTorch.  On
+the card attention differentiates through ``FlashAttention`` (its backward
+is the hand-written backward kernel), and the MoE pack and unpack, which
+have no backward kernel yet (ROADMAP.md §1), raise when grad mode is on and
+a float input requires grad, so that no gradient stops silently at a kernel
+launch.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.cms_update import cms_update as _cms_cuda
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.flash_attention import flash_attention as _flash_cuda
 from repro_torch.kernels.moe_onehot import onehot_combine as _combine_cuda
 from repro_torch.kernels.moe_onehot import onehot_dispatch as _dispatch_cuda
@@ -26,6 +34,18 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel realization for device {t.device}")
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    if _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP.md §1: MoE "
+            "training); call it under torch.no_grad() or on CPU tensors")
 
 
 def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
@@ -78,6 +98,7 @@ def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
     (eff, slot) [G, T]; dropped tuples are skipped, duplicate cells sum."""
     if not _on_cuda(values):
         return ref.onehot_dispatch(eff, slot, values, num_pe, capacity)
+    _no_backward("onehot_dispatch", values)
     return _dispatch_cuda(eff.to(torch.int32).contiguous(),
                           slot.to(torch.int32).contiguous(), values.contiguous(),
                           num_pe, capacity)
@@ -89,6 +110,7 @@ def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
     by ``gate`` [G, T] (None = 1); dropped tuples give zero rows."""
     if not _on_cuda(packed):
         return ref.onehot_combine(eff, slot, packed, gate)
+    _no_backward("onehot_combine", packed, gate)
     if gate is not None:
         gate = gate.to(packed.dtype).contiguous()
     return _combine_cuda(eff.to(torch.int32).contiguous(),
@@ -100,9 +122,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention forward q [B, Sq, H, dh], k/v [B, Sk, KV, dh] -> [B, Sq, H, dh]
     with positions by index (causal, sliding ``window``, GQA by index) and
-    the scaled scores soft-capped at ``softcap`` (0 = none)."""
+    the scaled scores soft-capped at ``softcap`` (0 = none).  On the card,
+    under grad, the backward kernel is its gradient."""
     if not _on_cuda(q):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal, window, softcap)
     return _flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                        causal=causal, window=window, softcap=softcap)

@@ -133,3 +133,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         keep &= kp > qp - window
     p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(q.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v) for
+    the output gradient ``do``, by ``torch.autograd.grad`` through it: the
+    plain version of the backward kernel.  Each gradient in its input's
+    dtype; dk and dv sum over the query heads that share a KV head."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=causal, window=window, softcap=softcap)
+        return torch.autograd.grad(out, leaves, do)

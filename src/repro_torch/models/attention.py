@@ -1,9 +1,9 @@
 """Attention: GQA + RoPE + optional sliding window and attention-logit
 soft-capping, a full-sequence path and a KV-cache decode path.
 
-The PyTorch counterpart of ``repro/models/attention.py`` (self-attention
-only: cross-attention belongs to the encoder-decoder family, not ported).
-Layout: activations [B, S, D], heads [B, S, H, dh].  The full-sequence
+The PyTorch counterpart of ``repro/models/attention.py``, self- and
+cross-attention (``kv_override``: whisper's decoder reads the encoder's
+memory).  Layout: activations [B, S, D], heads [B, S, H, dh].  The full-sequence
 ``attention`` goes through ``dispatch.flash_attention``, so the tensor's
 device decides: the hand-written flash kernel on a CUDA tensor, its plain
 version on a CPU tensor (tests/test_torch_attention.py holds that against
@@ -71,52 +71,43 @@ def _project(x, w, cd):
 
 def attention(params, x, *, num_heads, num_kv, head_dim, rope_theta=10000.0,
               causal=True, window=None, softcap_val=0.0, compute_dtype=None,
-              rope=True):
-    """Full-sequence self-attention (prefill) over positions 0..S-1.
+              rope=True, kv_override=None):
+    """Full-sequence attention (training, prefill) over query positions
+    0..S-1.
 
     x: [B, S, D] -> [B, S, D] through ``dispatch.flash_attention``, whose
     masks take positions as indices and which soft-caps the scaled scores
-    at ``softcap_val`` (0 = none)."""
+    at ``softcap_val`` (0 = none).  ``kv_override`` = (src [B, Sk, D],
+    k_positions [Sk]) projects K and V from ``src`` (cross-attention; the
+    positions only rotate K under ``rope``)."""
     cd = compute_dtype or x.dtype
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    src, k_pos = (x, positions) if kv_override is None else kv_override
     q = _project(x, params["wq"], cd)
-    k = _project(x, params["wk"], cd)
-    v = _project(x, params["wv"], cd)
+    k = _project(src, params["wk"], cd)
+    v = _project(src, params["wv"], cd)
     if rope:
         cos, sin = L.rope_cos_sin(positions, head_dim, rope_theta)
-        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+        q = L.apply_rope(q, cos, sin)
+        cos, sin = L.rope_cos_sin(k_pos, head_dim, rope_theta)
+        k = L.apply_rope(k, cos, sin)
     out = K.flash_attention(q, k, v, causal=causal, window=window or 0,
                             softcap=softcap_val)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cd))
 
 
-def attention_decode(params, x, cache: KVCache, cache_len, *, num_heads,
-                     num_kv, head_dim, rope_theta=10000.0, window=None,
-                     softcap_val=0.0, compute_dtype=None, rope=True, ring=False):
-    """One-token decode: x [B, 1, D]; ``cache_len`` (an int, a 0-d tensor, or
-    a [B] tensor of per-slot lengths) tokens decoded so far, the new
-    token's absolute position.
-
-    Writes the new K/V into ``cache`` IN PLACE (the JAX version returns a
-    new cache; the port saves the copy) and returns (out [B,1,D], cache).
-    ring=True keeps the cache as a ring buffer over absolute positions
-    (sliding-window layers keep only ``window`` slots)."""
-    cd = compute_dtype or x.dtype
+def _write_kv(params, x, cache: KVCache, cache_len, cd, cos, sin, ring: bool):
+    """Project x's K and V (rotated by cos/sin unless they are None) and
+    write them into ``cache`` at ``cache_len`` (modulo its length when
+    ``ring``), in place."""
     b = x.shape[0]
     max_len = cache.k.shape[1]
-    cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
-    vec = cache_len.dim() == 1
-    pos = cache_len[:, None] if vec else cache_len.reshape(1)
-    q = _project(x, params["wq"], cd)
     k_new = _project(x, params["wk"], cd)
     v_new = _project(x, params["wv"], cd)
-    if rope:
-        cos, sin = L.rope_cos_sin(pos, head_dim, rope_theta)
-        if not vec:     # [1, dh/2] -> [1, 1, dh/2]: broadcast over the batch
-            cos, sin = cos[None], sin[None]
-        q, k_new = L.apply_rope(q, cos, sin), L.apply_rope(k_new, cos, sin)
+    if cos is not None:
+        k_new = L.apply_rope(k_new, cos, sin)
     write = torch.remainder(cache_len, max_len) if ring else cache_len
-    if vec:
+    if cache_len.dim() == 1:
         # .at[rows, write].set drops a row whose write is past the cache:
         # such a row rewrites its last cell with what it holds
         ok = (write < max_len)[:, None, None]
@@ -129,8 +120,38 @@ def attention_decode(params, x, cache: KVCache, cache_len, *, num_heads,
         w = write.clamp(max=max_len - 1).long()
         cache.k.index_copy_(1, w.reshape(1), k_new.to(cache.k.dtype))
         cache.v.index_copy_(1, w.reshape(1), v_new.to(cache.v.dtype))
+
+
+def attention_decode(params, x, cache: KVCache, cache_len, *, num_heads,
+                     num_kv, head_dim, rope_theta=10000.0, window=None,
+                     softcap_val=0.0, compute_dtype=None, rope=True, ring=False,
+                     update_cache=True):
+    """One-token decode: x [B, 1, D]; ``cache_len`` (an int, a 0-d tensor, or
+    a [B] tensor of per-slot lengths) tokens decoded so far, the new
+    token's absolute position.
+
+    Writes the new K/V into ``cache`` IN PLACE (the JAX version returns a
+    new cache; the port saves the copy) and returns (out [B,1,D], cache).
+    ring=True keeps the cache as a ring buffer over absolute positions
+    (sliding-window layers keep only ``window`` slots).
+    update_cache=False reads only (cross-attention): the first
+    ``cache_len`` cells are valid and nothing is written."""
+    cd = compute_dtype or x.dtype
+    max_len = cache.k.shape[1]
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
+    vec = cache_len.dim() == 1
+    pos = cache_len[:, None] if vec else cache_len.reshape(1)
+    q = _project(x, params["wq"], cd)
+    cos = sin = None
+    if rope:
+        cos, sin = L.rope_cos_sin(pos, head_dim, rope_theta)
+        if not vec:     # [1, dh/2] -> [1, 1, dh/2]: broadcast over the batch
+            cos, sin = cos[None], sin[None]
+        q = L.apply_rope(q, cos, sin)
+    if update_cache:
+        _write_kv(params, x, cache, cache_len, cd, cos, sin, ring)
     slots = torch.arange(max_len, dtype=torch.int32, device=x.device)
-    valid_len = cache_len + 1
+    valid_len = cache_len + 1 if update_cache else cache_len
     vl = valid_len[:, None] if vec else valid_len
     if ring:
         # slot i holds the largest absolute position p <= cache_len with

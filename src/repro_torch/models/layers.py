@@ -109,3 +109,31 @@ def apply_rope(x, cos, sin):
     x1, x2 = x.chunk(2, dim=-1)
     c, s = cos[..., None, :], sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- LayerNorm
+def layernorm_params(d, device):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    """LayerNorm computed in float32 and cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dt)
+
+
+# ------------------------------------------------------------ cross-entropy
+def softmax_xent(logits, targets, vocab: int):
+    """Mean next-token cross-entropy in float32: the log-sum-exp over the
+    vocab axis (padded rows, masked to -1e30, add nothing) minus the gold
+    logit.  ``vocab`` is unused, as in the JAX package."""
+    del vocab
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -8,7 +8,8 @@ It covers the mixer kinds ``attn``, ``attn_local``, ``attn_nocausal``,
 ``mla`` and ``mamba`` and the FFN kinds ``dense``, ``moe`` and ``none``
 (a layer without ``norm2`` and ``ffn``): the dense, MoE, SSM, hybrid and
 VLM families, the last with its patch embeddings prepended to the tokens'
-(``patch_proj``).  The encoder-decoder family (whisper) is not ported yet.
+(``patch_proj``).  The encoder-decoder family (whisper) is in
+``whisper.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.tree import tree_map
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
 MIXER_KINDS = (*ATTN_KINDS, "mla", "mamba")
@@ -38,20 +40,12 @@ def _check_kinds(cfg: ArchConfig):
 
 def take(tree, i: int):
     """The ``i``-th entry of every leaf of a stacked tree."""
-    if isinstance(tree, dict):
-        return {k: take(v, i) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return type(tree)(*(take(v, i) for v in tree))
-    return tree[i]
+    return tree_map(lambda t: t[i], tree)
 
 
 def tree_to(tree, device):
     """A copy of a params or cache tree on ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return type(tree)(*(tree_to(v, device) for v in tree))
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def _stack(trees):

@@ -34,6 +34,7 @@ from repro_torch.core.types import ExecStats, resolve_device
 from repro_torch.data.pipeline import chunk_stream
 from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.zoo import Model
+from repro_torch.tree import tree_map
 
 
 def prefill_cache(model: Model, params, prompts: torch.Tensor, cache,
@@ -82,6 +83,20 @@ class Request:
     done: bool = False
 
 
+def _zero_ssm_state(tree):
+    """Zero every ``MambaCache`` (state and conv tail) anywhere in a cache
+    tree, in place."""
+    if isinstance(tree, MambaCache):
+        for t in tree:
+            t.zero_()
+    elif isinstance(tree, dict):
+        for sub in tree.values():
+            _zero_ssm_state(sub)
+    elif isinstance(tree, (tuple, list)):
+        for sub in tree:
+            _zero_ssm_state(sub)
+
+
 class DecodeEngine:
     """Slot-based continuous batching over a fixed decode batch width: each
     tick decodes every slot; the host keeps the results of active slots."""
@@ -102,17 +117,13 @@ class DecodeEngine:
         for i in range(self.slots):
             if self.slot_req[i] is None and self.queue:
                 req = self.queue.pop(0)
-                # per-slot prefill at admission: cache leaves are
-                # [num_periods, B, ...], so slot i is a view on axis 1 and
-                # the prefill writes into the engine's cache
-                cache_i = {j: type(kv)(*(t[:, i:i + 1] for t in kv))
-                           for j, kv in self.cache.items()}
+                # per-slot prefill at admission: every cache leaf is
+                # [layers or periods, B, ...], so slot i is a view on axis 1
+                # and the prefill writes into the engine's cache
+                cache_i = tree_map(lambda t: t[:, i:i + 1], self.cache)
                 # a request starts from a zero SSM state (the slot's last
                 # request, or the empty slot's stale decodes, left one)
-                for kv in cache_i.values():
-                    if isinstance(kv, MambaCache):
-                        for t in kv:
-                            t.zero_()
+                _zero_ssm_state(cache_i)
                 prompt = torch.as_tensor(req.prompt, dtype=torch.int32,
                                          device=self.model.device)[None, :]
                 logits, _ = prefill_cache(self.model, self.params, prompt, cache_i)

@@ -1,0 +1,41 @@
+"""Maps over the port's trees: nested dicts, named tuples, tuples and lists
+of tensors (params, caches, optimizer states), the roles ``jax.tree.map``
+and ``jax.tree.leaves`` play in the JAX package.  ``None`` is an empty
+subtree, as in JAX."""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` applied leaf by leaf to ``tree`` and the trees of the same
+    structure in ``rest``, in a tree of that structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves in JAX's order (dict keys sorted)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_unzip(tree, n: int) -> tuple:
+    """``n`` dict trees from one whose leaves are n-tuples (what
+    ``tree_map`` of a function returning a tuple gives over a dict tree)."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unzip(v, n) for k, v in tree.items()}
+        return tuple({k: parts[k][i] for k in tree} for i in range(n))
+    return tuple(tree)

@@ -1,12 +1,12 @@
 """The port's architecture configs and its serve CLI, on the CPU.
 
-Each of the port's configs, CONFIG and REDUCED, equals the JAX package's
-on every field the port's ``ArchConfig`` has, and its derived SSM widths
-too; the registry resolves the dashed names and refuses the config whose
-model code is not ported (whisper-base), as ``zoo.build`` refuses its
-family; and ``python -m repro_torch.launch.serve --device cpu`` with the
-default arch (llama3.2-3b, the JAX CLI's default), and with each of the
-SSM, hybrid and VLM configs, serves every request.
+Each of the port's configs, all ten of the JAX package's, CONFIG and
+REDUCED, equals the JAX package's on every field the port's ``ArchConfig``
+has, and its derived SSM widths too; the registry resolves the dashed
+names of every one (whisper-base included), and ``zoo.build`` builds the
+encoder-decoder family; and ``python -m repro_torch.launch.serve --device
+cpu`` with the default arch (llama3.2-3b, the JAX CLI's default), and with
+each of the SSM, hybrid and VLM configs, serves every request.
 """
 import dataclasses
 import importlib
@@ -46,17 +46,27 @@ def test_registry_resolves_the_jax_aliases():
 
 
 def test_registry_leaves_only_whisper_unported():
+    """Since whisper-base's port no config is left unported: the registry
+    has all ten of the JAX package's, whisper-base among them."""
     missing = [a for a in jconfigs.ARCH_IDS if a not in configs.ARCH_IDS]
-    assert missing == ["whisper_base"]
+    assert missing == []
+    assert sorted(configs.ARCH_IDS) == sorted(jconfigs.ARCH_IDS)
+    assert configs.get("whisper-base").family == "encdec"
     with pytest.raises(NotImplementedError, match="no config"):
-        configs.get("whisper-base")
+        configs.get("whisper-tiny")
 
 
 def test_zoo_refuses_the_encdec_family():
+    """The zoo no longer refuses the encoder-decoder family: an ``encdec``
+    config builds the whisper model (its cache takes an encoder memory)."""
+    import inspect
     from repro_torch.models import zoo
-    cfg = dataclasses.replace(configs.get_reduced("llama3.2-3b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        zoo.build(cfg, device="cpu")
+    cfg = configs.get_reduced("whisper-base")
+    model = zoo.build(cfg, device="cpu")
+    assert "memory" in inspect.signature(model.init_cache).parameters
+    params = model.init_params(model.generator(0))
+    assert set(params) == {"embed", "pos_dec", "encoder", "enc_norm", "decoder",
+                           "dec_norm"}
 
 
 def test_serve_cli_default_arch_serves_every_request():

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.  The kernels have no CPU mode, so every test here carries the
-``cuda`` marker and skips without a CUDA device.  This file imports no JAX,
-so it also runs where only PyTorch is installed:
+the card.  The kernels have no CPU mode, so every test of a kernel here
+carries the ``cuda`` marker and skips without a CUDA device; only the tests
+of the backward check's own power to fail run on the CPU.  This file
+imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -1212,3 +1213,258 @@ def test_decode_engine_admission_on_card_starts_from_zero_state(cuda_device, arc
         fresh, _ = real(model, params, torch.as_tensor(p, device=cuda_device)[None],
                         model.init_cache(None, 1, 32))
         torch.testing.assert_close(got, fresh[0].cpu(), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- flash attention backward
+# b, sq, sk, h, kv, dh, causal, window, cap: causal and not, GQA, a window,
+# the cap at dh 256 (two dK/dV column slices), whisper's Sk = 1500 (not a
+# multiple of the 64-key tile) with Sq != Sk, odd Sq, dh 96 in the 128
+# template, one query; the last two under cap 2, where unit scores make
+# 1 - tanh^2(s / cap) average ~0.8 (at cap 50 it is >= 0.99: the cap's
+# derivative would go untested)
+FLASH_BWD_CASES = [
+    (2, 128, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 100, 100, 4, 2, 64, False, 0, 0.0),
+    (1, 200, 200, 4, 2, 128, True, 48, 0.0),
+    (1, 160, 160, 4, 2, 256, True, 0, 50.0),
+    (1, 96, 96, 2, 1, 256, True, 32, 50.0),
+    (2, 77, 1500, 4, 4, 64, False, 0, 0.0),
+    (1, 131, 131, 2, 1, 96, True, 0, 0.0),
+    (2, 1, 40, 2, 2, 64, False, 0, 0.0),
+    (1, 160, 160, 4, 2, 256, True, 0, 2.0),
+    (2, 77, 300, 4, 2, 64, False, 0, 2.0),
+]
+# Against the plain backward of float32 copies, each of dQ, dK and dV is
+# held to two bounds.  Element by element, |got - want| <= tol * (1 + max
+# |want|) (BWD_TOL): float32 sums in another order (1e-4); bfloat16 rounds
+# P and dS to bf16 before their products (3e-2).  In norm, ||got - want||_F
+# / ||want||_F <= rel (BWD_REL): the elementwise bound is never below tol and
+# grows with the largest value, so it can be as large as a typical element;
+# bf16 rounding gives a few 1e-3 of the norm, dropping the ragged last query
+# tile's share of dK and dV at whisper's 1500 queries 0.14
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _bwd_inputs(cuda_device, b, sq, sk, h, kv, dh, dtype, seed):
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda_device).to(FLOATS[dtype])
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh), (b, sq, h, dh))]
+
+
+def _bwd_errors(got, want, dtype):
+    """max |got - want|, its bound, and ||got - want||_F / ||want||_F."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    delta = got.double() - want.double()
+    bound = BWD_TOL[dtype] * (1 + float(want.abs().max()))
+    return float(delta.abs().max()), bound, float(delta.norm() / want.double().norm())
+
+
+def _close_bwd(got, want, dtype):
+    """``got`` within BWD_TOL of ``want`` element by element and within
+    BWD_REL of it in norm."""
+    diff, bound, rel = _bwd_errors(got, want, dtype)
+    assert diff <= bound and rel <= BWD_REL[dtype], \
+        f"max |err| {diff} (bound {bound}), norm err {rel} (bound {BWD_REL[dtype]})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,cap", FLASH_BWD_CASES)
+def test_flash_attention_bwd_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal, window,
+                                      cap, dtype):
+    """dQ, dK and dV of the backward kernel, through FlashAttention's
+    backward, against ``ref.flash_attention_bwd`` (autograd through the
+    plain forward) on float32 copies of the same inputs; one forward and
+    one backward launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v, do = _bwd_inputs(cuda_device, b, sq, sk, h, kv, dh, dtype, sq + sk + dh)
+    want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), do.float(),
+                                   causal=causal, window=window, softcap=cap)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = dispatch.flash_attention(*leaves, causal=causal, window=window, softcap=cap)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == FLOATS[dtype] and g.shape == w.shape, name
+        _close_bwd(g, w, dtype)
+
+
+def _bwd_formula(q, k, v, do, cap, cap_derivative=True):
+    """FlashAttention-2's backward written out, non-causal, in float64: the
+    plain version's gradients, or (``cap_derivative=False``) those of a
+    backward that leaves out the cap's derivative 1 - tanh^2(s / cap)."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    kk, vv = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * dh ** -0.5
+    t = torch.tanh(s / cap) if cap else None
+    p = torch.softmax(cap * t if cap else s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if cap and cap_derivative:
+        ds = ds * (1 - t * t)
+    ds = ds * dh ** -0.5
+
+    def per_kv_head(x):
+        return x.reshape(b, x.shape[1], kvh, h // kvh, dh).sum(3)
+
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kk),
+            per_kv_head(torch.einsum("bhqk,bqhd->bkhd", ds, q)),
+            per_kv_head(torch.einsum("bhqk,bqhd->bkhd", p, do)))
+
+
+# (fault, b, sq, sk, h, kv, dh, cap): a bf16 backward that drops the ragged
+# last query tile from dK and dV at whisper's encoder length (1500 = 23 x 64
+# + 28 queries); one that leaves out the cap's derivative under cap 2
+BWD_FAULTS = [("ragged_query_tile", 1, 1500, 1500, 2, 2, 64, 0.0),
+              ("no_cap_derivative", 2, 77, 300, 4, 2, 64, 2.0)]
+
+
+def _fault_inputs(b, sq, sk, h, kv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(torch.bfloat16).float()
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh), (b, sq, h, dh))]
+
+
+@pytest.mark.parametrize("fault,b,sq,sk,h,kv,dh,cap", BWD_FAULTS)
+def test_bwd_formula_matches_plain(fault, b, sq, sk, h, kv, dh, cap):
+    """The written-out backward that the fault test plants its faults in is
+    the plain version's, ``ref.flash_attention_bwd`` (float32) within 1e-5
+    of the largest value (CPU)."""
+    q, k, v, do = _fault_inputs(b, sq, sk, h, kv, dh)
+    want = ref.flash_attention_bwd(q, k, v, do, causal=False, softcap=cap)
+    for name, g, w in zip(("dq", "dk", "dv"), _bwd_formula(q, k, v, do, cap), want):
+        torch.testing.assert_close(g.float(), w, rtol=0, atol=1e-5 * float(w.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("fault,b,sq,sk,h,kv,dh,cap", BWD_FAULTS)
+def test_bwd_check_fails_a_planted_fault(fault, b, sq, sk, h, kv, dh, cap):
+    """The bf16 check of test_flash_attention_bwd_vs_plain (``_close_bwd``)
+    passes the plain gradients rounded to bf16 and fails a backward with a
+    planted fault in dK or dV, by its norm bound alone (CPU: the faults are
+    planted in the written-out backward)."""
+    q, k, v, do = _fault_inputs(b, sq, sk, h, kv, dh)
+    want = ref.flash_attention_bwd(q, k, v, do, causal=False, softcap=cap)
+    for w in want:
+        _close_bwd(w.to(torch.bfloat16), w, "bfloat16")
+    if fault == "ragged_query_tile":     # dV without the last 13 queries' share
+        kept = do.clone()
+        kept[:, sq - sq % 64:] = 0
+        faulty, right = _bwd_formula(q, k, v, kept, cap)[2], want[2]
+    else:                                # dK without c'(s)
+        faulty, right = _bwd_formula(q, k, v, do, cap, cap_derivative=False)[1], want[1]
+    assert _bwd_errors(faulty.to(torch.bfloat16), right, "bfloat16")[2] > BWD_REL["bfloat16"]
+    with pytest.raises(AssertionError, match="norm err"):
+        _close_bwd(faulty.to(torch.bfloat16), right, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+def test_flash_attention_lse_is_the_row_logsumexp(cuda_device, dtype):
+    """The forward's log-sum-exp output: each row's logsumexp of the kept,
+    scaled and capped scores (float32 reference), +inf for a row that keeps
+    no key (Sk = 0 here is not a case: every row keeps its diagonal)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(cuda_device, 2, 90, 90, 4, 2, 64, dtype, 7)
+    out, lse = fa(q, k, v, causal=True, window=16, softcap=30.0, return_lse=True)
+    kk = k.float().repeat_interleave(2, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * 64 ** -0.5
+    s = 30.0 * torch.tanh(s / 30.0)
+    i = torch.arange(90, device=cuda_device)
+    keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 16)
+    want = torch.logsumexp(torch.where(keep, s, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+    _close(out, ref.flash_attention(q, k, v, causal=True, window=16, softcap=30.0),
+           dtype, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,cap", [(True, 0, 0.0), (False, 0, 0.0),
+                                               (True, 3, 5.0)])
+def test_flash_attention_autograd_gradcheck(cuda_device, causal, window, cap):
+    """FlashAttention under torch.autograd.gradcheck at a tiny float32
+    shape (GQA 2/1, Sq 5 against Sk 7): finite differences with eps 1e-3,
+    so atol = rtol = 1e-2 (float32 inputs, not float64)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((1, 5, 2, 8), generator=gen, device=cuda_device, requires_grad=True)
+    k = torch.randn((1, 7, 1, 8), generator=gen, device=cuda_device, requires_grad=True)
+    v = torch.randn((1, 7, 1, 8), generator=gen, device=cuda_device, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: dispatch.flash_attention(a, b, c, causal=causal, window=window,
+                                                 softcap=cap),
+        (q, k, v), eps=1e-3, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_moe_kernels_raise_under_grad(cuda_device):
+    """The MoE pack and unpack have no backward kernel: on CUDA tensors they
+    raise under grad when a float input requires it, and run under no_grad."""
+    eff = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    x = torch.randn((1, 8, 16), device=cuda_device, requires_grad=True)
+    packed = torch.randn((1, 2, 4, 16), device=cuda_device, requires_grad=True)
+    gate = torch.rand((1, 8), device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        dispatch.onehot_dispatch(eff, eff, x, 2, 4)
+    with pytest.raises(NotImplementedError, match="backward"):
+        dispatch.onehot_combine(eff, eff, packed.detach(), gate)
+    with pytest.raises(NotImplementedError, match="backward"):
+        dispatch.onehot_combine(eff, eff, packed)
+    with torch.no_grad():
+        dispatch.onehot_dispatch(eff, eff, x, 2, 4)
+        dispatch.onehot_combine(eff, eff, packed, gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama3.2-3b", "gemma2-2b",
+                                  "phi-3-vision-4.2b"])
+def test_loss_grads_on_card_match_cpu(cuda_device, arch):
+    """The loss and every gradient of a REDUCED config in float32 (TF32
+    off) on the card, through the flash forward and backward kernels (once
+    an attention a call each), against the CPU's plain path on the same
+    weights and batch: the loss within rtol 1e-5, each gradient leaf within
+    atol = 1e-4 * (1 + its max) (sums in another order)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    cpu_model = zoo.build(cfg, device="cpu")
+    params = cpu_model.init_params(cpu_model.generator(0))
+    rng = np.random.default_rng(0)
+    st = 16
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, st + 1)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.encoder_len, cfg.d_model)).astype(np.float32)) * 0.02
+    if cfg.num_patches:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_patches, cfg.patch_embed_dim)).astype(np.float32)) * 0.02
+    attn = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec"
+            else cfg.num_layers)
+    out = []
+    for where in (cuda_device, torch.device("cpu")):
+        model = zoo.build(cfg, device=where)
+        leaves = tree_map(lambda p: p.detach().clone().requires_grad_(),
+                          tree_to(params, where))
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        loss, _ = model.loss_fn(leaves, {k: v.to(where) for k, v in batch.items()})
+        loss.backward()
+        torch.cuda.synchronize()
+        if where.type == "cuda":
+            assert (flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1]) == (attn, attn)
+        out.append((float(loss.detach()), [t.grad.cpu() for t in tree_leaves(leaves)]))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for g, w in zip(g_gpu, g_cpu):
+        assert bool(((g - w).abs() <= 1e-4 * (1 + w.abs().max())).all())

@@ -339,3 +339,18 @@ def test_lm_params_from_numpy_takes_jamba_tree():
         {f"{j}.ffn" for j in range(cfg.period)}
     assert set(params["blocks"]["4.mixer"]) == {"wq", "wk", "wv", "wo"}
     assert "a_log" in params["blocks"]["0.mixer"]
+
+
+def test_admission_zeroes_ssm_state_anywhere_in_a_cache_tree():
+    """``DecodeEngine``'s admission reset finds a ``MambaCache`` wherever it
+    sits in a cache tree (a dict of periods, a tuple, a list) and zeroes it
+    in place; a tensor outside any ``MambaCache`` keeps its values."""
+    def mamba():
+        return m2.MambaCache(state=torch.ones((1, 2, 3)), conv=torch.ones((1, 3, 4)))
+
+    kv = torch.ones((1, 2, 5))
+    tree = {"0": mamba(), "1": (kv, [mamba()]), "2": {"inner": mamba()}}
+    engine._zero_ssm_state(tree)
+    for cache in (tree["0"], tree["1"][1][0], tree["2"]["inner"]):
+        assert all(not t.any() for t in cache)
+    assert bool((kv == 1).all())
