@@ -3430,7 +3430,9 @@ G_BWD = (("llama", 1, 1024, 1024, 24, 8, 128, True, 0, 0.0, 1),
 # ragged last query tile (28 of 1500) from dK and dV ~sqrt(28 / 1500) = 0.14
 G_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 G_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-G_BWD_TIMED = ("llama", "whisper_encoder", "whisper_cross")
+G_BWD_TIMED = ("llama", "whisper_encoder", "whisper_cross", "gemma2_cap50")
+# the backward's bf16 kernels: Delta, the one-pass tile kernel, the conversion
+G_BWD_KERNELS = ("delta_kernel", "bwd_tile_kernel", "bwd_convert_kernel")
 G_WHISPER = (8, 448, 20)      # batch, tokens (frames: encoder_len), steps
 G_LLAMA = (4, (2, 1024), 8)   # layers of 28, batch shape, steps
 G_PARITY = (2, (2, 64))       # encoder and decoder layers, token shape
@@ -3515,10 +3517,12 @@ def sdpa_flash_bwd(q, k, v, do, causal):
 
 
 def flash_bwd_times(dev) -> dict:
-    """Phase G: the backward kernel (the wrapper's call: Delta, dK/dV and dQ)
-    at G_BWD_TIMED's shapes in bf16, beside PyTorch's FlashAttention
-    backward kernel at the same shape (``sdpa_flash_bwd``, aten called
-    directly: no autograd) in turns; its plain version and its bound."""
+    """Phase G: the backward kernel (the wrapper's call: Delta, the tile
+    kernel, the conversion) at G_BWD_TIMED's shapes in bf16, beside
+    PyTorch's FlashAttention backward kernel at the same shape
+    (``sdpa_flash_bwd``, aten called directly: no autograd, no cap) in
+    turns; the card time of the call's three kernels (together and each),
+    its plain version and its bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3534,14 +3538,18 @@ def flash_bwd_times(dev) -> dict:
                                                      window=window, softcap=cap),
                "sdpa": sdpa_flash_bwd(q, k, v, do, causal)}
         turns = cuda_ms_turns(fns, iters=20)
+        card_ms = device_ms(fns["kernel"], G_BWD_KERNELS, calls=50, per_call=3)
+        by_kernel = {n: device_ms(fns["kernel"], n, calls=50) for n in G_BWD_KERNELS}
         plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, do, causal=causal,
                                                            window=window, softcap=cap),
                            iters=5, warmup=1)
         b_ms, b_by = flash_bwd_bound(q, k, v, causal, window)
         out[name] = {"shape": f"B={b} Sq={sq} Sk={sk} H={h} KV={kvh} dh={dh} "
                               f"{'causal' if causal else 'non-causal'} bfloat16",
-                     "ms": turns["kernel"], "library_ms": turns["sdpa"],
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                     "ms": turns["kernel"], "device_ms": card_ms,
+                     "device_ms_by_kernel": by_kernel,
+                     "library_ms": turns["sdpa"], "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
         del q, k, v, do, o, lse, fns
     torch.cuda.empty_cache()
     return out
@@ -3573,7 +3581,7 @@ def bwd_share(step, state, batch) -> dict:
     (null where the profiler recorded none of them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    names = ("dkdv_kernel", "dq_kernel", "delta_kernel")
+    names = G_BWD_KERNELS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3793,13 +3801,15 @@ def training_path(dev) -> tuple[dict, dict, dict]:
                     "package differentiates sdpa_chunked with jax.grad, no Pallas backward)",
         "launches": total["flash_attention_bwd"],
         "max_abs_err": max(rec["bwd_check_max_abs_err"].values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "shape": main["shape"] + "; *_whisper_encoder and *_whisper_cross at whisper's",
+        "ms": main["ms"], "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": main["shape"] + "; *_whisper_encoder and *_whisper_cross at whisper's, "
+                 "*_gemma2_cap50 at gemma2-2b's (cap 50; the library call has no cap)",
         "library_call": "aten._scaled_dot_product_flash_attention_backward called directly "
                         "(is_causal as the kernel's), KV heads repeated outside the timing",
         **{f"{key}_{name}": times[name][key] for name in G_BWD_TIMED[1:]
-           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
     return rec, total, entry
 
 

@@ -10,8 +10,13 @@ each is laid out.  The plain version is ``ref.flash_attention``.
 
 The backward has no Pallas counterpart (the JAX package differentiates
 ``sdpa_chunked`` with ``jax.grad``); it recomputes the probabilities from
-the forward's row log-sum-exp, as FlashAttention-2 does.  Its plain version
-is ``ref.flash_attention_bwd``.  ``FlashAttention`` is the
+the forward's row log-sum-exp, as FlashAttention-2 does.  bfloat16 runs one
+pass over the (key block, query tile) pairs on the tensor cores, a CTA per
+(batch, query head, key block), and adds dQ into a float32 accumulator with
+atomics, so bf16 dq differs from run to run in its last bits (as PyTorch's
+flash backward does); dk and dv are summed in a fixed order.  float32, the
+parity path, runs on the CUDA cores without atomics and is deterministic.
+Its plain version is ``ref.flash_attention_bwd``.  ``FlashAttention`` is the
 ``torch.autograd.Function`` that ``dispatch.flash_attention`` applies to
 CUDA tensors under grad: its forward keeps the log-sum-exp, its backward
 launches the backward kernel.
@@ -35,6 +40,14 @@ def _entry():
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_scratch_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -128,8 +141,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32|bfloat16) on one CUDA device, contiguous; lse float32
     [B, H, Sq].  dk and dv sum over the query heads that share a KV head.
     bfloat16 runs on the tensor cores and rounds P and dS to bf16 before
-    their products; float32 runs in float32 throughout.  Raises on any other
-    input and if a launch fails."""
+    their products; its dq is summed by float32 atomics, so its last bits
+    vary from run to run.  float32 runs in float32 throughout, without
+    atomics.  Raises on any other input and if a launch fails."""
     _check(softcap, q=q, k=k, v=v, o=o, do=do)
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -138,8 +152,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {sq}] on {q.device}, "
                          f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    err = _bwd_entry()(dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+    # Delta and, for bf16, dq's float32 accumulator and the GQA partials
+    scratch = torch.empty(_bwd_scratch_entry()(b, sq, sk, h, kvh, dh, _IS_BF16[q.dtype]),
+                          dtype=torch.float32, device=q.device)
+    err = _bwd_entry()(dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
                        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        do.data_ptr(), lse.data_ptr(),
                        b, sq, sk, h, kvh, dh, dh ** -0.5, int(causal), int(window),

@@ -1221,7 +1221,15 @@ def test_decode_engine_admission_on_card_starts_from_zero_state(cuda_device, arc
 # multiple of the 64-key tile) with Sq != Sk, odd Sq, dh 96 in the 128
 # template, one query; the last two under cap 2, where unit scores make
 # 1 - tanh^2(s / cap) average ~0.8 (at cap 50 it is >= 0.99: the cap's
-# derivative would go untested)
+# derivative would go untested).  Then the one-pass layout's edges: llama's
+# group of 3 (three query heads' CTAs sum one KV head's dK/dV), Sk = 200 off
+# the 64-key block at dh 64 under 5 query tiles, dh 256 with a window over
+# many 32-query tiles, 256 CTAs (more than the card's 132 SMs), a group of
+# 8 (the largest cluster) at dh 256 (the most shared memory a CTA), and a
+# group of 12 (starcoder2's 48/4), larger than a cluster.  Then causal with
+# Sq < Sk, where the key blocks past Sq keep no query and their dK/dV must
+# be zero: groups of 2 at dh 64 and of 4 at dh 128 (in a cluster), of 16 at
+# dh 256 (through partials); and a group of 11 (partials) at Sq = Sk
 FLASH_BWD_CASES = [
     (2, 128, 128, 4, 4, 64, True, 0, 0.0),
     (2, 100, 100, 4, 2, 64, False, 0, 0.0),
@@ -1233,6 +1241,16 @@ FLASH_BWD_CASES = [
     (2, 1, 40, 2, 2, 64, False, 0, 0.0),
     (1, 160, 160, 4, 2, 256, True, 0, 2.0),
     (2, 77, 300, 4, 2, 64, False, 0, 2.0),
+    (1, 130, 130, 24, 8, 128, True, 0, 0.0),
+    (1, 300, 200, 4, 2, 64, False, 0, 0.0),
+    (1, 300, 300, 4, 2, 256, True, 100, 0.0),
+    (2, 512, 512, 16, 4, 128, True, 0, 0.0),
+    (1, 96, 96, 8, 1, 256, True, 0, 0.0),
+    (1, 70, 70, 12, 1, 64, True, 0, 0.0),
+    (1, 64, 200, 4, 2, 64, True, 0, 0.0),
+    (1, 64, 200, 8, 2, 128, True, 0, 0.0),
+    (1, 64, 200, 16, 1, 256, True, 0, 0.0),
+    (1, 100, 100, 11, 1, 64, True, 0, 0.0),
 ]
 # Against the plain backward of float32 copies, each of dQ, dK and dV is
 # held to two bounds.  Element by element, |got - want| <= tol * (1 + max
@@ -1293,10 +1311,13 @@ def test_flash_attention_bwd_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal,
         _close_bwd(g, w, dtype)
 
 
-def _bwd_formula(q, k, v, do, cap, cap_derivative=True):
+def _bwd_formula(q, k, v, do, cap, cap_derivative=True, dq_keys=None, dkv_heads=None):
     """FlashAttention-2's backward written out, non-causal, in float64: the
-    plain version's gradients, or (``cap_derivative=False``) those of a
-    backward that leaves out the cap's derivative 1 - tanh^2(s / cap)."""
+    plain version's gradients, or those of a backward with a fault: one that
+    leaves out the cap's derivative 1 - tanh^2(s / cap)
+    (``cap_derivative=False``), one whose dQ sums only the keys of the mask
+    ``dq_keys`` [Sk], one whose dK and dV sum only the heads of each GQA
+    group at the offsets ``dkv_heads``."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     q, k, v, do = (t.double() for t in (q, k, v, do))
@@ -1311,18 +1332,25 @@ def _bwd_formula(q, k, v, do, cap, cap_derivative=True):
     ds = ds * dh ** -0.5
 
     def per_kv_head(x):
-        return x.reshape(b, x.shape[1], kvh, h // kvh, dh).sum(3)
+        x = x.reshape(b, x.shape[1], kvh, h // kvh, dh)
+        return (x if dkv_heads is None else x[:, :, :, dkv_heads]).sum(3)
 
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, kk),
+    ds_q = ds if dq_keys is None else ds * dq_keys.double()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds_q, kk),
             per_kv_head(torch.einsum("bhqk,bqhd->bkhd", ds, q)),
             per_kv_head(torch.einsum("bhqk,bqhd->bkhd", p, do)))
 
 
 # (fault, b, sq, sk, h, kv, dh, cap): a bf16 backward that drops the ragged
 # last query tile from dK and dV at whisper's encoder length (1500 = 23 x 64
-# + 28 queries); one that leaves out the cap's derivative under cap 2
+# + 28 queries); one that leaves out the cap's derivative under cap 2; two
+# of the one-pass layout: one key block's dQ atomics lost at whisper
+# cross's Sk = 1500 (the ragged last block of 64 keys, 28 of them), and dK
+# and dV from only the first head of each group of 3
 BWD_FAULTS = [("ragged_query_tile", 1, 1500, 1500, 2, 2, 64, 0.0),
-              ("no_cap_derivative", 2, 77, 300, 4, 2, 64, 2.0)]
+              ("no_cap_derivative", 2, 77, 300, 4, 2, 64, 2.0),
+              ("lost_key_block_dq", 1, 448, 1500, 2, 2, 64, 0.0),
+              ("first_head_of_group", 1, 128, 128, 6, 2, 64, 0.0)]
 
 
 def _fault_inputs(b, sq, sk, h, kv, dh, seed=0):
@@ -1348,8 +1376,8 @@ def test_bwd_formula_matches_plain(fault, b, sq, sk, h, kv, dh, cap):
 def test_bwd_check_fails_a_planted_fault(fault, b, sq, sk, h, kv, dh, cap):
     """The bf16 check of test_flash_attention_bwd_vs_plain (``_close_bwd``)
     passes the plain gradients rounded to bf16 and fails a backward with a
-    planted fault in dK or dV, by its norm bound alone (CPU: the faults are
-    planted in the written-out backward)."""
+    planted fault in dQ, dK or dV, by its norm bound alone (CPU: the faults
+    are planted in the written-out backward)."""
     q, k, v, do = _fault_inputs(b, sq, sk, h, kv, dh)
     want = ref.flash_attention_bwd(q, k, v, do, causal=False, softcap=cap)
     for w in want:
@@ -1358,8 +1386,13 @@ def test_bwd_check_fails_a_planted_fault(fault, b, sq, sk, h, kv, dh, cap):
         kept = do.clone()
         kept[:, sq - sq % 64:] = 0
         faulty, right = _bwd_formula(q, k, v, kept, cap)[2], want[2]
-    else:                                # dK without c'(s)
+    elif fault == "no_cap_derivative":   # dK without c'(s)
         faulty, right = _bwd_formula(q, k, v, do, cap, cap_derivative=False)[1], want[1]
+    elif fault == "lost_key_block_dq":   # dQ without keys [1472, 1500)
+        keys = torch.arange(sk) < sk - sk % 64
+        faulty, right = _bwd_formula(q, k, v, do, cap, dq_keys=keys)[0], want[0]
+    else:                                # dK from each group's first head
+        faulty, right = _bwd_formula(q, k, v, do, cap, dkv_heads=[0])[1], want[1]
     assert _bwd_errors(faulty.to(torch.bfloat16), right, "bfloat16")[2] > BWD_REL["bfloat16"]
     with pytest.raises(AssertionError, match="norm err"):
         _close_bwd(faulty.to(torch.bfloat16), right, "bfloat16")

@@ -20,13 +20,22 @@ inputs made from a seed:
     dh 256), causal, bf16, against SDPA, and its card time alone; its
     outputs there and in float32
     are hashed, and the roots' hashes must agree (``flash_identical``: the
-    uncapped kernel's output bit for bit).
+    uncapped kernel's output bit for bit);
+  - ``flash_attention_bwd`` in bf16 at phase G's timed shapes
+    (``chip_smoke.G_BWD_TIMED``: llama3.2-3b's training shape, gemma2's
+    with cap 50, whisper's encoder and cross), against aten's flash
+    backward (``chip_smoke.sdpa_flash_bwd``, no cap).  Its outputs are not
+    hashed: bf16 dq is summed by atomics and varies in its last bits.
 ``ms`` is a call's time from CUDA events over back-to-back calls;
 ``device_ms`` the card's time of every kernel and memset a call launches,
 from ``chip_smoke.device_ms`` (null where torch.profiler missed launches).
 The timing helpers and the library yardsticks are ``chip_smoke.py``'s.
 Prints one JSON line a turn, the card's name and power limit, then the
 mean of each number per root (null if any turn's is null).
+
+    python3 tools/kernel_turns.py --only bwd PARENT_ROOT .
+
+times only the named groups (``route``, ``dispatch``, ``flash``, ``bwd``).
 """
 from __future__ import annotations
 
@@ -41,19 +50,37 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 SEED = 3
+GROUPS = ("route", "dispatch", "flash", "bwd")
+# the backward's kernels: Delta, then dK/dV and dQ (before the redesign) or
+# the one-pass tile kernel and the conversion; three a bf16 call either way
+BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "bwd_tile_kernel",
+               "bwd_convert_kernel")
 
 
-def child(root: Path) -> dict:
+def child(root: Path, groups: tuple[str, ...] = GROUPS) -> dict:
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(1, str(REPO))
-    from chip_smoke import CHUNK, chunk_inputs, cuda_ms_turns, device_ms, library_dispatch
-    from repro_torch.apps import hll
-    from repro_torch.data.zipf import zipf_tuples
-    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import dispatch
     assert Path(dispatch.__file__).resolve().is_relative_to(root.resolve())
     dev = torch.device("cuda", 0)
-    out = {"root": str(root)}
+    out = {"root": str(root), "digests": {}}
+    if "route" in groups:
+        out.update(time_route(dev))
+    if "dispatch" in groups:
+        out.update(time_dispatch(dev, root))
+    if "flash" in groups:
+        out.update(time_flash(dev))
+    if "bwd" in groups:
+        out.update(time_bwd(dev))
+    return out
 
+
+def time_route(dev) -> dict:
+    from chip_smoke import CHUNK, chunk_inputs, cuda_ms_turns, device_ms
+    from repro_torch.apps import hll
+    from repro_torch.data.zipf import zipf_tuples
+    from repro_torch.kernels import dispatch
+    out = {}
     spec = hll.make_spec(12, 16)
     eff, idx, val = chunk_inputs(spec, zipf_tuples(CHUNK, 1 << 22, 3.0, seed=SEED), 14, dev)
     buf = spec.init_buffer(30, dev)
@@ -64,7 +91,13 @@ def child(root: Path) -> dict:
         0, flat, val, "amax")})
     out["route_accumulate"] = {"ms": turns["kernel"], "library_ms": turns["library"],
                                "device_ms": device_ms(fn, "route_accumulate_")}
+    return out
 
+
+def time_dispatch(dev, root: Path) -> dict:
+    from chip_smoke import cuda_ms_turns, device_ms, library_dispatch
+    from repro_torch.kernels import dispatch, ops
+    out = {}
     # a dispatch call is a memset and the parent's one scatter kernel, or a
     # memset and this tree's link and fill kernels
     source = root / "src/repro_torch/kernels/csrc/moe_onehot.cu"
@@ -85,7 +118,13 @@ def child(root: Path) -> dict:
                      "device_ms": device_ms(fn, ("dispatch_", "Memset"), calls=50,
                                             per_call=per_call),
                      "kept": kept}
+    return out
 
+
+def time_flash(dev) -> dict:
+    from chip_smoke import cuda_ms_turns, device_ms
+    from repro_torch.kernels import dispatch
+    out = {}
     digests = {}
     for name, (h, kvh, dh) in (("flash_moonshot", (16, 16, 128)),
                                ("flash_gemma2", (8, 4, 256))):
@@ -112,12 +151,42 @@ def child(root: Path) -> dict:
     return out
 
 
+def time_bwd(dev) -> dict:
+    from chip_smoke import (G_BWD, G_BWD_TIMED, cuda_ms_turns, device_ms, flash_inputs,
+                            sdpa_flash_bwd)
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    out = {}
+    for name, b, sq, sk, h, kvh, dh, causal, window, cap, _ in G_BWD:
+        if name not in G_BWD_TIMED:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, torch.bfloat16)
+        do = torch.randn((b, sq, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                                 return_lse=True)
+        fn = lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window,
+                                         softcap=cap)
+        turns = cuda_ms_turns({"kernel": fn, "library": sdpa_flash_bwd(q, k, v, do, causal)},
+                              iters=20)
+        out[f"bwd_{name}"] = {"ms": turns["kernel"], "library_ms": turns["library"],
+                              "device_ms": device_ms(fn, BWD_KERNELS, calls=50, per_call=3)}
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 1
+    groups = GROUPS
+    if argv[:1] == ["--only"]:
+        groups, argv = tuple(argv[1].split(",")), argv[2:]
+        if not set(groups) <= set(GROUPS):
+            print(f"kernel_turns: --only takes names of {GROUPS}", file=sys.stderr)
+            return 2
     if argv[:1] == ["--child"]:
-        print(json.dumps(child(Path(argv[1]))))
+        print(json.dumps(child(Path(argv[1]), groups)))
         return 0
     roots = argv
     if len(roots) < 2:
@@ -125,7 +194,8 @@ def main(argv: list[str]) -> int:
         return 2
     results = {r: [] for r in roots}
     for root in roots + roots[::-1]:
-        run = subprocess.run([sys.executable, __file__, "--child", root],
+        run = subprocess.run([sys.executable, __file__, "--only", ",".join(groups),
+                              "--child", root],
                              capture_output=True, text=True, timeout=600)
         if run.returncode:
             print(run.stdout, run.stderr, file=sys.stderr)
