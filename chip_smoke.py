@@ -30,7 +30,7 @@ Phases (any failure exits non-zero before the result lines):
      needs; cms_update's card time also at an alpha-0 chunk, and the host
      time of each piece of both PE updates' calls (the route_accumulate_host
      and cms_update_host lines);
-  6. profile 64 chunks of every configuration (torch.profiler): the card's
+  6. profile 32 chunks of every configuration (torch.profiler): the card's
      time and the host's aten ops per chunk against the wall time per
      chunk; time the app's PrePE and the greedy scheduler alone.
   7. PageRank (Fig. 8's R-MAT graph of degree 32, undirected, V = 2^14:
@@ -41,7 +41,8 @@ Phases (any failure exits non-zero before the result lines):
      X = 0 on the first iteration's tuples (Fig. 8's modeled speedup); and
      its card time per chunk as in phase 6;
   8. DP (radix 8 bits, 256 partitions, 16 a PriPE, 2^22 slots a PE, ~1.5 GB
-     of state) over the alpha-3 stream of phase 3 with Ditto's X: no cursor
+     of state) over the first 2^23 tuples of phase 3's alpha-3 stream with
+     Ditto's X: no cursor
      at the capacity, partitions equal to the oracle as multisets, the
      first 256 chunks identical on card and CPU slot for slot, no PE kernel
      launched; then its card time per chunk as in phase 6;
@@ -55,11 +56,11 @@ Phases (any failure exits non-zero before the result lines):
      bit-exact against the oracle;
  11. StreamEngine at serving size (M = 16, X = 14, chunks of 4096, 8 lanes,
      every engine on the default obs bundle): HISTO with an online batch of
-     8 tenants at Zipf alpha 0-3, 2^20 - r_i tuples each (seven ragged
-     tails; 256 batched chunks, ~8 M tuples in one flush) and a planned
+     8 tenants at Zipf alpha 0-3, 2^19 - r_i tuples each (seven ragged
+     tails; 128 batched chunks, ~4 M tuples in one flush) and a planned
      batch of 5 tenants under per-tenant static plans (3 pad lanes); HHD, 8
      tenants at alpha 3 (cms_update over lanes); HLL, 4 ragged tenants (4
-     pad lanes); 2^20 tuples a tenant outside the online batch.  Every tenant equal to its oracle and, merged and every
+     pad lanes); 2^19 tuples a tenant outside the online batch.  Every tenant equal to its oracle and, merged and every
      ExecStats field, to its stream alone through make_executor; 64 chunks
      of the online batch identical on card and CPU; pad lanes left as
      init_state made them; each PE kernel once per batched chunk; the
@@ -74,7 +75,7 @@ Phases (any failure exits non-zero before the result lines):
      ragged appends (0-4 chunks plus a tail), queries in both scopes,
      engine and per-session flushes and closes: (a) HISTO (512 bins, domain
      2^20), 8 primary + 8 secondary slots, aot_buckets=8: 24 tenants at
-     Zipf alpha 0-3 and ~2^23 tuples (~64 MB), 8 of them one open_batch
+     Zipf alpha 0-3 and ~2^21 tuples (~16 MB), 8 of them one open_batch
      storm, 16 by open, 8 of which queue; every answer bit-exact against
      the oracle, the slot table and queue against FIFO admission, no build
      event after warmup(), route_accumulate once per batched chunk step,
@@ -96,8 +97,8 @@ Phases (any failure exits non-zero before the result lines):
  13. SessionService, the TCP front door, in front of a DurableSessionEngine
      on the card (phase 12's HISTO shape and slots, checkpoint_every=4,
      keep=3, warmup() before start()), scored admission, a per-tenant rate
-     limit and the scrape sidecar: 32 tenants at Zipf alpha 0-3, ~2^24
-     tuples (~128 MB) over loopback in ragged appends of up to 2^19 tuples
+     limit and the scrape sidecar: 32 tenants at Zipf alpha 0-3, ~2^23
+     tuples (~64 MB) over loopback in ragged appends of up to 2^19 tuples
      (4 MB frames), from 8 threads with a ServiceClient each and one
      AsyncServiceClient pipelining its 8 tenants' appends; rate-limited
      requests sleep their RETRY-AFTER and retry; more opens than the 8
@@ -126,10 +127,10 @@ Phases (any failure exits non-zero before the result lines):
      2, with its claim (alpha 2: X = 0 drops over 1000 tuples after the
      plan, X = 2 none at a lower max receive load; alpha 0 oracle-exact),
      HLL (max) at alpha 2, X = 2 oracle-exact, each chunk identical on the
-     card and a CPU mesh, then a 2^22-tuple alpha-2 stream at X = 2, timed;
+     card and a CPU mesh, then a 2^21-tuple alpha-2 stream at X = 2, timed;
      route_accumulate once a shard a chunk; (b) route_all_to_all on 8 card
      shards against its numpy oracle; (c) SessionEngine(mesh=4 shards) at
-     phase 12a's shape and a local engine through one op script of ~2^21
+     phase 12a's shape and a local engine through one op script of ~2^20
      tuples: answers equal to the oracle and to each other, slot tables,
      folds and integer telemetry equal, folds across shards, no build
      event after warmup(), the PE kernel once a shard an engine-wide step
@@ -154,7 +155,7 @@ Then the MoE language model (moonshot-v1-16b-a3b at full width):
      already cached, timed over 32 steps.  Dispatch and combine launch once
      per layer per decode_fn call; prefill and a serving-load step are
      profiled;
-  C. the card against the CPU at full width with 2 layers in float32 (TF32
+  C. the card against the CPU at full width with 1 layer in float32 (TF32
      off): prefill logits within 1e-3 and identical greedy tokens of a
      2-request DecodeEngine, on the same weights;
   D. time each new kernel, its plain version and one library call on the
@@ -180,9 +181,9 @@ Then the other configs, one model on the card at a time:
      of 40): prefill_fn on [1, 1024] and the serve run, llama3.2-3b's
      through the serve CLI itself, repro_torch.launch.serve.main(["--full"])
      at its default arch;
-     (e) deepseek's and gemma2's first 2 layers in float32 (TF32 off) on the
-     card and the CPU: prefill logits on [1, 256] within 1e-3, identical
-     greedy tokens of a 2-request DecodeEngine;
+     (e) deepseek's first layer and gemma2's first 2 in float32 (TF32 off)
+     on the card and the CPU: prefill logits on [1, 256] within 1e-3,
+     identical greedy tokens of a 2-request DecodeEngine;
      (f) flash at gemma2's prefill shape with cap 50 and cap 0 and at MLA's,
      beside SDPA without a cap and the bound; prefill tokens/s of each
      config;
@@ -240,15 +241,32 @@ Then the other configs, one model on the card at a time:
      checkpoint under build/, then resumed to step 8; then the backward
      kernel's times at llama's and whisper's shapes beside its plain
      version, PyTorch's flash backward kernel (aten, called directly) and
-     the bound.  Prints the training line:
-     ms a step, tokens/s and the backward kernel's share of a step.
+     the bound.  The MoE, MLA, SSM and hybrid families: (a') the MoE pack
+     and unpack's gradients (dispatch.OnehotDispatch / OnehotCombine, the
+     kernels) against autograd through their plain versions, float32 and
+     bf16, at moonshot's first-layer training shape (4 groups of 512 tokens
+     x top-6, 72 slots x 60, D 2048), at capacity 8 with a fifth of the
+     tuples on the sentinel eff = P, and at the decode shape (1, 384, 7):
+     dx and dpacked bit-exact, dgate within 1e-6 (float32, of its largest
+     value) or 1e-2 (bf16, in norm), 2 packs and 3 unpacks a case; (b')
+     moonshot-v1-16b-a3b at full width, 2 of its 48 layers, [2, 1024], 8
+     steps; (c') mamba2-780m at full width and depth, [2, 1024], 8 steps; in
+     both as (b), with the MoE pack twice and the unpack three times a MoE
+     layer a step (mamba2 launches no kernel); (d') as (d), one step of
+     deepseek-v2-lite's first layer at full width on [1, 256], mamba2's
+     first 2 on [1, 512] (two SSD chunks) and Jamba's REDUCED config with
+     its adamw8bit (the loss and gradients only), the params after the
+     step against the CPU optimizer applied to the card's gradients.  Prints the training
+     line: ms a step, tokens/s, peak memory and the kernels' shares of a
+     profiled step with its top kernels.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line of six entries (each PE kernel's launches
 summed over the count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14:
 phase 11's windows are its four flushes, phase 12's its op script runs,
 phase 13's the serving before the crash and after the recovery, phase 14's
-its streams and op script runs; flash_attention_bwd's over phase G's main
-paths), and last {"ok": true, "device": {...}}.
+its streams and op script runs; the LM kernels' over phases B, E, F and
+G's main paths, flash_attention_bwd's over phase G's), and last {"ok":
+true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -274,34 +292,38 @@ BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 SEED = 3
 PR_VERTICES, PR_ITERS = 2**14, 10   # the Q16.16 budget's largest V
 DP_CAPACITY = 2**22                 # slots a PE; 2.6x the busiest PE's 1.62 M (alpha 3)
+DP_TUPLES = 2**23                   # phase 8's share of the stream (PERF.md §4)
 TUNE_TUPLES, TUNE_CHUNKS = 2**22, (2048, 4096, 8192)
 LM_LAYERS = 8                  # of 48: the float32 weights of 48 do not fit 80 GB
+C_PARITY_LAYERS = 1            # phase C on the CPU: 2 layers took 23-43 s (PERF.md §4)
 PREFILL_SHAPE = (4, 1024)
 SMOKE_SLOTS, SMOKE_MAX_LEN = 4, 128           # repro.launch.serve's defaults
 LOAD_SLOTS, LOAD_MAX_LEN, LOAD_STEPS = 64, 4096, 32   # decode at serving load
 LOAD_CONTEXT = (1024, LOAD_MAX_LEN - 128)      # tokens already in each slot
 STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
 # phases 11-14's sizes were halved to keep the script under 600 s beside
-# phases F and G (HHD's phase 12 (c) as it was); PERF.md §4 lists the cuts
-STREAM_TUPLES, STREAM_SMALL = 2**20, 2**20    # a tenant of the online batch; of the others
+# phases F and G (HHD's phase 12 (c) as it was), and again (phases 11, 12
+# (a), (b), 13, 14 (a) long stream and (c)) beside phase G's MoE and SSM
+# training; PERF.md §4 lists the cuts
+STREAM_TUPLES, STREAM_SMALL = 2**19, 2**19    # a tenant of the online batch; of the others
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
 LANE_SWEEP, LANE_SWEEP_CHUNKS = (1, 2, 4, 8), 64
 SESSION_TENANTS, SESSION_SLOTS, SESSION_AOT = 24, (8, 8), 8   # phase 12 (a), (b)
-SESSION_TUPLES = 2**23                       # appended over the op script, ~64 MB
+SESSION_TUPLES = 2**21                       # appended over the op script, ~16 MB
 SESSION_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
 SESSION_PARITY_CHUNKS = 64
 HHD_SESSION_TUPLES = 2**20                   # phase 12 (c): 0.5-2x this a tenant
 DP_SESSION_TUPLES, DP_SESSION_CAPACITY = 2**21, 2**19   # phase 12 (d)
 SERVICE_TENANTS, SERVICE_ASYNC_TENANTS, SERVICE_THREADS = 32, 8, 8   # phase 13
-SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**24, 2**19   # through the socket; 4 MB frames
+SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**23, 2**19   # through the socket; 4 MB frames
 SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
 SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
 MESH_PE_SHARDS, MESH_PRI, MESH_SEC = 8, 6, 2   # phase 14 (a): examples/distributed_ditto.py
 MESH_BINS, MESH_DOMAIN, MESH_CHUNK, MESH_CHUNKS, MESH_CAP = 384, 1 << 20, 6144, 16, 256
-MESH_LONG_TUPLES = 2**22                     # (a): the alpha-2 stream at X = 2
+MESH_LONG_TUPLES = 2**21                     # (a): the alpha-2 stream at X = 2
 MESH_ROUTE = (8, 16, 4096, 600)              # (b): shards, PEs, tuples a shard, capacity
-MESH_LANE_SHARDS, MESH_SESSION_TUPLES = 4, 2**21     # (c), (d)
+MESH_LANE_SHARDS, MESH_SESSION_TUPLES = 4, 2**20     # (c), (d)
 MESH_HHD_TENANTS, MESH_HHD_TUPLES = 4, 2**18         # (c): HHD on the meshed engine
 
 
@@ -529,7 +551,7 @@ def profile_window(run, window: int) -> dict:
 
 
 def profile_chunks(cfg, spec, tuples, num_sec, dev, warm: int = 16,
-                   window: int = 64) -> dict:
+                   window: int = 32) -> dict:
     """``profile_window`` over ``window`` chunks of one stream after
     ``warm`` chunks."""
     from repro_torch.core import make_resumable_executor
@@ -2637,26 +2659,30 @@ def lm_cpu_parity(dev, params_deep, config=None, n_tokens: int = 64,
     patches = (frontends.random_patches(cfg, torch.Generator().manual_seed(SEED), 1)
                if cfg.num_patches else None)
     prompts = [rng.integers(0, cfg.vocab, 4).astype(np.int32) for _ in range(2)]
-    outs = []
+    outs, split_s = [], {"to_cpu": time.perf_counter() - t0}
     for where, params in ((dev, gpu_params), (torch.device("cpu"), cpu_params)):
+        t1 = time.perf_counter()
         model = zoo.build(cfg, device=where)
         batch = {"tokens": torch.as_tensor(tokens, device=where)}
         if patches is not None:
             batch["patches"] = patches.to(where)
-        logits = model.prefill_fn(params, batch)
+        logits = model.prefill_fn(params, batch).cpu()
+        t2 = time.perf_counter()
         engine = DecodeEngine(model, params, slots=2, max_len=16)
         reqs = [Request(i, p, 4) for i, p in enumerate(prompts)]
         for r in reqs:
             engine.submit(r)
         engine.run()
-        outs.append((logits.cpu(), [r.out for r in reqs]))
+        outs.append((logits, [r.out for r in reqs]))
+        split_s[f"{where.type}_prefill"] = t2 - t1
+        split_s[f"{where.type}_decode"] = time.perf_counter() - t2
     (l_gpu, t_gpu), (l_cpu, t_cpu) = outs
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-3, atol=1e-3)
     assert t_gpu == t_cpu, (t_gpu, t_cpu)
     return {"arch": cfg.name, "layers": layers, "compute_dtype": "float32",
             "prefill_tokens": [1, n_tokens], "patches": cfg.num_patches,
             "max_abs_logit_diff": float((l_gpu - l_cpu).abs().max()),
-            "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0}
+            "greedy_tokens": t_gpu, "host_s": time.perf_counter() - t0, "split_s": split_s}
 
 
 def library_dispatch(eff, slot, xin, num_pe, cap):
@@ -2844,6 +2870,9 @@ E_CONFIGS = (("deepseek-v2-lite-16b", 4, ((4, 1024),), None),
 E_SSM_ARCH = "mamba2-780m"            # decode at load, profile, admission reset
 E_CLI_ARCH = "llama3.2-3b"            # repro_torch.launch.serve's default
 E_PARITY_TOKENS = 256
+# layers of the card-vs-CPU comparisons (default 2): deepseek's MoE at full
+# width on the CPU took 20.9 s at 2 layers (PERF.md §4)
+E_PARITY_LAYERS = {"deepseek-v2-lite-16b": 1}
 
 
 def check_flash_softcap(dev) -> dict:
@@ -3170,7 +3199,8 @@ def lm_configs_path(dev) -> tuple[dict, dict]:
         if arch == "deepseek-v2-lite-16b":
             one["placement"] = placement_check(dev, model, params)
         if arch in ("deepseek-v2-lite-16b", "gemma2-2b", E_SSM_ARCH, "phi-3-vision-4.2b"):
-            one["cpu_parity"] = lm_cpu_parity(dev, params, get(arch), E_PARITY_TOKENS)
+            one["cpu_parity"] = lm_cpu_parity(dev, params, get(arch), E_PARITY_TOKENS,
+                                              layers=E_PARITY_LAYERS.get(arch, 2))
         del model, params
         torch.cuda.empty_cache()
         if arch == "jamba-1.5-large-398b":
@@ -3435,9 +3465,37 @@ G_BWD_TIMED = ("llama", "whisper_encoder", "whisper_cross", "gemma2_cap50")
 G_BWD_KERNELS = ("delta_kernel", "bwd_tile_kernel", "bwd_convert_kernel")
 G_WHISPER = (8, 448, 20)      # batch, tokens (frames: encoder_len), steps
 G_LLAMA = (4, (2, 1024), 8)   # layers of 28, batch shape, steps
+# moonshot-v1-16b-a3b: 2 of 48 layers.  A float32 training step holds ~40 B
+# a parameter at its peak (params, grads, clipped grads, the old and the new
+# moments, the updates, the new params: llama3.2-3b's 4 layers peak at
+# 31.95 GB for 0.797 B parameters on an H100), so 4 layers (2.69 B) would
+# need ~108 GB; 2 layers are 1.51 B
+G_MOONSHOT = (2, (2, 1024), 8)
+G_MAMBA2 = (None, (2, 1024), 8)   # all 48 layers
 G_PARITY = (2, (2, 64))       # encoder and decoder layers, token shape
+# card vs CPU, one float32 step of the decoder-only families: (arch, layers
+# of full width or None for the REDUCED config, token shape, optimizer);
+# deepseek at phase E's forward comparison shape (1 layer: its CPU step at
+# 2 layers took 54 s, PERF.md §4), mamba2 over two SSD chunks
+G_LM_PARITY = (("deepseek-v2-lite-16b", 1, (1, 256), "adamw"),
+               ("mamba2-780m", 2, (1, 512), "adamw"),
+               ("jamba-1.5-large-398b", None, (2, 64), "adamw8bit"))
 G_CLI_STEPS = (4, 8)          # the launcher's run, then its resumption
 G_GATE = 1e-3                 # card vs CPU: max |a - b| / max |b| of any leaf
+# (name, G, T, P, C, D, share of tuples on the sentinel eff = P): moonshot's
+# first-layer training shape (2 x 1024 tokens in groups of 512, top-6, 64 +
+# 8 slots, capacity 60), the same groups at capacity 8 with a fifth of the
+# tuples on the sentinel (most tuples dropped), and phase A's decode shape
+G_MOE = (("moonshot_train", 4, 3072, 72, 60, 2048, 0.0),
+         ("past_capacity", 4, 3072, 72, 8, 2048, 0.2),
+         ("decode", 1, 384, 72, 7, 2048, 0.0))
+# dgate's bound: max |err| / max |want| in float32 (the same row dot, summed
+# in the same or another order), ||err|| / ||want|| in bf16 (dy * rows
+# rounds to bf16 before the sum)
+G_MOE_DGATE = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+# the MoE pack and unpack's kernels: the head-map memset, link and fill;
+# the gather
+MOE_KERNELS = ("dispatch_link_kernel", "dispatch_fill_kernel", "combine_kernel")
 
 
 def check_flash_bwd(dev) -> tuple[dict, dict]:
@@ -3555,14 +3613,74 @@ def flash_bwd_times(dev) -> dict:
     return out
 
 
+def check_moe_grads(dev) -> dict:
+    """Phase G (a'): the MoE pack and unpack's gradients through
+    OnehotDispatch and OnehotCombine (the kernels) against autograd through
+    their plain versions on the same CUDA tensors, float32 and bf16, at
+    G_MOE's shapes; slots by occurrence rank (unique cells, as the MoE layer
+    makes them).  dx and dpacked must be bit-exact (pure moves and the same
+    gate product), dgate within G_MOE_DGATE; the kernels' launches are 2
+    packs and 3 unpacks a case.  Returns each case's readings beside their
+    bounds and prints them."""
+    from repro_torch.kernels import dispatch, ops, ref
+    from repro_torch.kernels.moe_onehot import onehot_combine, onehot_dispatch
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, g, t, pe, cap, d, sentinel in G_MOE:
+        eff = torch.from_numpy(rng.integers(0, pe, (g, t)).astype(np.int32)).to(dev)
+        slot = ops.occurrence_rank(eff, pe).to(torch.int32)
+        on_sentinel = torch.from_numpy(rng.random((g, t)) < sentinel).to(dev)
+        eff = torch.where(on_sentinel, pe, eff).to(torch.int32)
+        kept = int(((eff < pe) & (slot < cap)).sum())
+        for dtype, bound in G_MOE_DGATE.items():
+            x, dy = (torch.randn((g, t, d), generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            packed, dpk = (torch.randn((g, pe, cap, d), generator=gen, device=dev).to(dtype)
+                           for _ in range(2))
+            gate = torch.rand((g, t), generator=gen, device=dev).to(dtype)
+            grads, launched = [], []
+            for pack, unpack in ((dispatch.onehot_dispatch, dispatch.onehot_combine),
+                                 (ref.onehot_dispatch, ref.onehot_combine)):
+                before = (onehot_dispatch.launches, onehot_combine.launches)
+                xs, ps, gs = (a.detach().requires_grad_() for a in (x, packed, gate))
+                dx, = torch.autograd.grad(pack(eff, slot, xs, pe, cap), xs, dpk)
+                dp, dg = torch.autograd.grad(unpack(eff, slot, ps, gs), (ps, gs), dy)
+                torch.cuda.synchronize()
+                grads.append((dx, dp, dg))
+                launched.append((onehot_dispatch.launches - before[0],
+                                 onehot_combine.launches - before[1]))
+            # the Functions: a pack and an unpack forward; an unpack (dx), a
+            # pack (dpacked) and an unpack (dgate's rows) backward
+            assert launched == [(2, 3), (0, 0)], launched
+            (dx, dp, dg), (dx_w, dp_w, dg_w) = grads
+            key = f"{name}_{str(dtype).removeprefix('torch.')}"
+            assert dx.dtype == dp.dtype == dg.dtype == dtype, key
+            assert torch.equal(dx, dx_w), f"onehot_dispatch backward {key}: dx not bit-exact"
+            assert torch.equal(dp, dp_w), f"onehot_combine backward {key}: dpacked not bit-exact"
+            delta = dg.double() - dg_w.double()
+            err = (float(delta.abs().max() / dg_w.double().abs().max())
+                   if dtype == torch.float32
+                   else float(delta.norm() / dg_w.double().norm()))
+            out[key] = {"dx_exact": True, "dpacked_exact": True, "dgate_err": err,
+                        "dgate_bound": bound, "kept": kept, "tuples": g * t}
+            print(f"moe_grads {key}: dx, dpacked bit-exact; dgate "
+                  f"{'max' if dtype == torch.float32 else 'norm'} rel err {err:.3e} "
+                  f"(bound {bound:.0e}); {kept} of {g * t} tuples kept", file=sys.stderr)
+            assert err <= bound, f"onehot_combine backward {key}: dgate err {err} > {bound}"
+            del x, dy, packed, dpk, gate, grads, dx, dp, dg, dx_w, dp_w, dg_w
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_steps(model, params, batch, steps: int, schedule):
-    """``steps`` of make_train_step (adamw at ``schedule``, clip 1.0) on
-    one fixed batch.  Returns the last state, the losses and the host
-    seconds of each step (each ends in reading its loss)."""
-    from repro_torch.optim import adamw
+    """``steps`` of make_train_step (the config's optimizer at ``schedule``,
+    clip 1.0) on one fixed batch.  Returns the last state, the losses and
+    the host seconds of each step (each ends in reading its loss)."""
+    from repro_torch.optim import make_optimizer
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.state import TrainState
-    opt = adamw(schedule)
+    opt = make_optimizer(model.cfg.optimizer, schedule)
     state = TrainState(step=torch.zeros((), dtype=torch.int32, device=model.device),
                        params=params, opt_state=opt.init(params))
     step = make_train_step(model, opt)
@@ -3575,13 +3693,13 @@ def train_steps(model, params, batch, steps: int, schedule):
     return state, losses, secs, step
 
 
-def bwd_share(step, state, batch) -> dict:
+def step_profile(step, state, batch) -> dict:
     """One more step under torch.profiler: the card's time in the backward
-    kernel's three kernels against the step's wall time under the profiler
-    (null where the profiler recorded none of them)."""
+    kernel's three kernels, the forward flash kernel and the MoE pack and
+    unpack against the step's wall time under the profiler (null where the
+    profiler recorded none of them), and the card's top kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    names = G_BWD_KERNELS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3590,20 +3708,27 @@ def bwd_share(step, state, batch) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    bwd_ms = 1e-3 * sum(e.self_device_time_total for e in kernels
-                        if any(n in e.key for n in names))
     device_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
-    return {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
-            "flash_bwd_ms": bwd_ms if bwd_ms else None,
-            "flash_bwd_share_of_step": bwd_ms / wall_ms if bwd_ms else None}
+    out = {"wall_ms_profiled": wall_ms, "device_ms": device_ms}
+    for key, names in (("flash_bwd", G_BWD_KERNELS), ("flash_fwd", ("flash_bf16_kernel",)),
+                       ("moe", MOE_KERNELS)):
+        ms = 1e-3 * sum(e.self_device_time_total for e in kernels
+                        if any(n in e.key for n in names))
+        out[f"{key}_ms"] = ms or None
+        out[f"{key}_share_of_step"] = ms / wall_ms if ms else None
+    by_name = {}
+    for e in kernels:
+        by_name[e.key[:100]] = by_name.get(e.key[:100], 0.0) + 1e-3 * e.self_device_time_total
+    out["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    return out
 
 
-def train_run(dev, cfg, batch, steps: int, per_step: int, schedule) -> tuple[dict, dict]:
-    """Phase G (b), (c): ``steps`` training steps of ``cfg`` at seeded
-    random weights on one fixed batch, the main path counted from 0: the
-    forward and backward kernels ``per_step`` times a step each, the loss
-    falls and every parameter stays finite.  Then ms a step (the steps
-    after the first), tokens/s and the backward kernel's share of a step."""
+def train_run(dev, cfg, batch, steps: int, per_step: dict, schedule) -> tuple[dict, dict]:
+    """Phase G (b), (c), (b'), (c'): ``steps`` training steps of ``cfg`` at
+    seeded random weights on one fixed batch, the main path counted from 0:
+    each kernel launched ``per_step[name]`` times a step, the loss falls and
+    every parameter stays finite.  Then ms a step (the steps after the
+    first), tokens/s and the kernels' shares of a profiled step."""
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
     model = zoo.build(cfg, device=dev)
@@ -3615,8 +3740,7 @@ def train_run(dev, cfg, batch, steps: int, per_step: int, schedule) -> tuple[dic
     state, losses, secs, step = train_steps(model, params, batch, steps, schedule)
     torch.cuda.synchronize()
     counts = train_counts()               # ---- to here
-    assert counts == {"flash_attention": steps * per_step,
-                      "flash_attention_bwd": steps * per_step}, counts
+    assert counts == {k: steps * per_step.get(k, 0) for k in counts}, (counts, per_step)
     assert losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}"
     assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)), \
         f"{cfg.name}: a parameter is not finite"
@@ -3629,14 +3753,30 @@ def train_run(dev, cfg, batch, steps: int, per_step: int, schedule) -> tuple[dic
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     if "frames" in batch:
         rec["frames"] = batch["frames"].shape[1]
-    rec["profile"] = bwd_share(step, state, batch)
+    rec["profile"] = step_profile(step, state, batch)
     return rec, counts
 
 
 def train_counts() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    return {"flash_attention": flash_attention.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    return dict(lm_counts(), flash_attention_bwd=flash_attention_bwd.launches)
+
+
+def lm_train_per_step(cfg) -> dict:
+    """Launches a training step of a decoder-only ``cfg``: the flash forward
+    and backward once an attention (or MLA) layer; the MoE pack twice (the
+    forward, the unpack's backward) and the unpack three times (the
+    forward, the pack's backward, dgate's rows) a MoE layer."""
+    attn, moe = layer_counts(cfg)
+    return {"flash_attention": attn, "flash_attention_bwd": attn,
+            "onehot_dispatch": 2 * moe, "onehot_combine": 3 * moe}
+
+
+def lm_train_batch(cfg, shape, dev, seed: int = SEED) -> dict:
+    """Seeded tokens [B, S] and their next-token labels."""
+    b, s = shape
+    toks = prefill_batch(cfg, (b, s + 1), dev, seed)["tokens"]
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def rel_diff(got, want) -> float:
@@ -3697,6 +3837,92 @@ def train_cpu_parity(dev, params_deep) -> dict:
             "host_s": time.perf_counter() - t0}
 
 
+def step_cpu_parity(dev, cfg, gpu_params, batch, params_too: bool = True) -> dict:
+    """One make_train_step step of ``cfg`` (its optimizer at a constant
+    max_lr, clip 1.0) in float32 (TF32 off) on the card and on the CPU from
+    the same weights (``gpu_params``, copied) and batch (on the CPU): the
+    loss within 1e-3 (relative) and the gradients the optimizer receives
+    (clipped at 1.0) within G_GATE (max |card - CPU| / max |CPU| of any
+    leaf).  Where ``params_too``, the card's params after the step within
+    G_GATE of the CPU's optimizer applied to the card's gradients (the CPU
+    step takes them in place of its own).  Against the CPU's own step the
+    params need not hold it: AdamW's first step moves each element by
+    ~lr * g / (|g| + 1e-8), so an element whose gradient is a cancelling
+    float32 sum near 1e-8 moves with that sum's relative error, which the
+    gradient gate, relative to the leaf's largest gradient, does not bound;
+    a leaf initialized to zero holds nothing but such steps (PERF.md §6,
+    ``tools/step_parity_leaves.py``)."""
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    outs = []
+    split_s = {}
+    for where in (dev, cpu):
+        t1 = time.perf_counter()
+        params = tree_to(gpu_params, where)
+        model = zoo.build(cfg, device=where)
+        opt = make_optimizer(cfg.optimizer, constant(cfg.max_lr))
+        seen = {}
+        # the CPU step updates with the card's gradients (outs[0][1])
+        card_grads = outs[0][1] if outs else None
+
+        def update(grads, state, params, step, _update=opt.update, use=card_grads):
+            seen["grads"] = grads
+            return _update(grads if use is None else use, state, params, step)
+
+        opt = dataclasses.replace(opt, update=update)
+        state = TrainState(step=torch.zeros((), dtype=torch.int32, device=where),
+                           params=params, opt_state=opt.init(params))
+        new, m = make_train_step(model, opt)(state, {k: v.to(where) for k, v in batch.items()})
+        outs.append((float(m["loss"]), tree_to(seen["grads"], cpu),
+                     tree_to(new.params, cpu) if params_too else None))
+        del params, model, state, new, seen, card_grads
+        torch.cuda.empty_cache()
+        split_s[where.type] = time.perf_counter() - t1
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = outs
+    grad_diff = rel_diff(g_gpu, g_cpu)
+    param_diff = rel_diff(p_gpu, p_cpu) if params_too else None
+    assert abs(l_gpu - l_cpu) <= 1e-3 * max(1.0, abs(l_cpu)), (cfg.name, l_gpu, l_cpu)
+    assert grad_diff <= G_GATE, f"{cfg.name}: gradients differ by {grad_diff} > {G_GATE}"
+    assert not params_too or param_diff <= G_GATE, \
+        f"{cfg.name}: params after the step differ by {param_diff} > {G_GATE}"
+    return {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+            "optimizer": cfg.optimizer, "loss_card": l_gpu, "loss_cpu": l_cpu,
+            "max_rel_grad_diff": grad_diff,
+            "max_rel_param_diff_after_step_from_card_grads": param_diff,
+            "gate": G_GATE, "host_s": time.perf_counter() - t0, "split_s": split_s}
+
+
+def lm_train_cpu_parity(dev) -> list:
+    """Phase G (d'): ``step_cpu_parity`` for each of G_LM_PARITY, at fresh
+    seeded weights of its own layers (float32): deepseek-v2-lite's MLA and
+    MoE and mamba2's SSD at full width, Jamba's REDUCED config with its
+    adamw8bit (the loss and the gradients only: an 8-bit code may round the
+    other way)."""
+    from repro_torch.configs import get, get_reduced
+    from repro_torch.models import zoo
+    out = []
+    for arch, layers, shape, optimizer in G_LM_PARITY:
+        cfg = (get_reduced(arch) if layers is None else dataclasses.replace(
+            get(arch), num_layers=layers, compute_dtype="float32"))
+        assert cfg.optimizer == optimizer and cfg.compute_dtype == "float32", cfg
+        model = zoo.build(cfg, device=dev)
+        params = model.init_params(model.generator(SEED))
+        batch = lm_train_batch(cfg, shape, torch.device("cpu"), seed=SEED + 7)
+        out.append({"layers": layers or "reduced", "tokens": list(shape),
+                    **step_cpu_parity(dev, cfg, params, batch,
+                                      params_too=optimizer == "adamw")})
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_cli(dev) -> tuple[dict, dict]:
     """Phase G (e): ``repro_torch.launch.train.main`` at --arch
     whisper-base with a checkpoint directory under build/, G_CLI_STEPS[0]
@@ -3729,7 +3955,8 @@ def train_cli(dev) -> tuple[dict, dict]:
             assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
             del state
     for run, ran in zip(runs, (first, last - first)):     # the resumption runs the rest
-        assert run["launches"] == {"flash_attention": ran * per_step,
+        assert run["launches"] == {"onehot_dispatch": 0, "onehot_combine": 0,
+                                   "flash_attention": ran * per_step,
                                    "flash_attention_bwd": ran * per_step}, run
     text = out.getvalue()
     assert f"finished at step {first}" in text and f"finished at step {last}" in text, text
@@ -3746,46 +3973,50 @@ def whisper_flash_per_forward() -> int:
 
 
 def training_path(dev) -> tuple[dict, dict, dict]:
-    """Phase G: the backward kernel against its plain version, training
-    whisper-base and llama3.2-3b (4 of 28 layers) on the card, one step
-    against the CPU, the launcher with a resumption, and the backward
-    kernel's times.  Returns the record, the main paths' launch counts
-    (summed) and the kernels-line entry of flash_attention_bwd."""
+    """Phase G: the backward kernel and the MoE kernels' gradients against
+    their plain versions; training whisper-base, llama3.2-3b (4 of 28
+    layers), moonshot-v1-16b-a3b (2 of 48) and mamba2-780m (all 48) on the
+    card; one step against the CPU of whisper, deepseek-v2-lite, mamba2 and
+    Jamba; the launcher with a resumption; the backward kernel's times.
+    Returns the record, the main paths' launch counts (summed) and the
+    kernels-line entry of flash_attention_bwd."""
     from repro_torch.configs import get
     from repro_torch.models import zoo
     from repro_torch.optim import warmup_cosine
     rec = dict(zip(("bwd_check_max_abs_err", "bwd_check_norm_err"), check_flash_bwd(dev)))
-    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    rec["moe_grads"] = check_moe_grads(dev)
+    total = dict.fromkeys(train_counts(), 0)
+
+    def run(key, cfg, batch, steps, per_step, **extra):
+        t0 = time.perf_counter()
+        one, counts = train_run(dev, cfg, batch, steps, per_step,
+                                warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
+        one["phase_s"] = time.perf_counter() - t0
+        rec[key] = dict(one, **extra)
+        for k in total:
+            total[k] += counts[k]
+        torch.cuda.empty_cache()
 
     cfg = get(F_ARCH)
     b, s, steps = G_WHISPER
-    t0 = time.perf_counter()
-    one, counts = train_run(dev, cfg, whisper_batch(cfg, (b, s), dev, labels=True), steps,
-                            whisper_flash_per_forward(),
-                            warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
-    one["phase_s"] = time.perf_counter() - t0
-    rec["whisper"] = one
-    total = {k: total[k] + counts[k] for k in total}
-    torch.cuda.empty_cache()
+    per_forward = whisper_flash_per_forward()
+    run("whisper", cfg, whisper_batch(cfg, (b, s), dev, labels=True), steps,
+        {"flash_attention": per_forward, "flash_attention_bwd": per_forward})
 
-    # the CPU comparison takes fresh weights of its own layers
+    # the CPU comparisons take fresh weights of their own layers
     model = zoo.build(get(F_ARCH), device=dev)
     rec["cpu_parity"] = train_cpu_parity(dev, model.init_params(model.generator(SEED)))
     del model
     torch.cuda.empty_cache()
+    rec["lm_cpu_parity"] = lm_train_cpu_parity(dev)
 
-    layers, shape, steps = G_LLAMA
-    cfg = dataclasses.replace(get("llama3.2-3b"), num_layers=layers)
-    batch = prefill_batch(cfg, (shape[0], shape[1] + 1), dev)
-    batch = {"tokens": batch["tokens"][:, :-1], "labels": batch["tokens"][:, 1:]}
-    t0 = time.perf_counter()
-    one, counts = train_run(dev, cfg, batch, steps, layers,
-                            warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
-    one["phase_s"] = time.perf_counter() - t0
-    one["of_layers"] = get("llama3.2-3b").num_layers
-    rec["llama"] = one
-    total = {k: total[k] + counts[k] for k in total}
-    torch.cuda.empty_cache()
+    for key, arch, (layers, shape, steps) in (("llama", "llama3.2-3b", G_LLAMA),
+                                              ("moonshot", "moonshot-v1-16b-a3b", G_MOONSHOT),
+                                              ("mamba2", "mamba2-780m", G_MAMBA2)):
+        full = get(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        run(key, cfg, lm_train_batch(cfg, shape, dev), steps, lm_train_per_step(cfg),
+            of_layers=full.num_layers)
 
     rec["train_cli"], counts = train_cli(dev)
     total = {k: total[k] + counts[k] for k in total}
@@ -3850,11 +4081,13 @@ def main() -> int:
         print(f"build {kernel}: {usage}")
     print(f"build_s {build_s:.3f}")
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 2")
     # ---- 2. kernels against their plain versions
     max_err = check_kernels(route_accumulate, cms_update, ref, dev)
     print("kernel_check", json.dumps(max_err))
     print("compilemon_phases_1_2", json.dumps(dataclasses.asdict(compilemon.since(before))))
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 3")
     # ---- 3. the main path at the paper's stream size
     t0 = time.perf_counter()
     stream_0 = zipf_tuples(N_TUPLES, 1 << 20, 0.0, seed=SEED)
@@ -3922,6 +4155,7 @@ def main() -> int:
         del chunks, mask, merged, stats
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 4")
     # ---- 4. card against CPU on the first chunks of the alpha-3 HISTO run
     spec = histo.make_spec(512, 1 << 20, 16)
     x = picked["histo_a3"]
@@ -3940,6 +4174,7 @@ def main() -> int:
     print(f"cpu_parity ok: {PARITY_CHUNKS} chunks, X={x}, merged and every "
           "ExecStats field identical")
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 5")
     # ---- 5. kernel times at the main path's shapes
     def route_bound(buf, eff, idx):
         """Bytes: 12 per tuple, plus a read and a write of each cell this
@@ -4018,6 +4253,7 @@ def main() -> int:
                  f"device_ms_alpha0 at an alpha=0 chunk into [{16 + x0}, 4, 1024]",
         "library_call": "index_add_ on precomputed flat indices"})
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 6")
     # ---- 6. where the time of a chunk goes: card time and host ops per
     # chunk from torch.profiler over a steady window of every configuration,
     # then the host time of the two per-chunk steps whose cost differs
@@ -4034,19 +4270,22 @@ def main() -> int:
         host[f"schedule_secpes_x{x}"] = host_ms(lambda: schedule_secpes(hist, x))
     print("host_ms", json.dumps(host))
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 7")
     # ---- 7. PageRank on the most skewed Fig. 8 graph at V = 2^14
     rec, counts = pagerank_path(dev)
     launches["route_accumulate"] += counts["route_accumulate"]
     print("pagerank", json.dumps(rec))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 8")
     # ---- 8. DP over the alpha-3 stream, and its card time per chunk
-    rec = dp_path(dev, stream_3)
+    rec = dp_path(dev, stream_3[:DP_TUPLES])
     rec["profile"] = profile_chunks("dp_a3", dp.make_spec(8, 16, DP_CAPACITY), stream_3,
                                     rec["num_sec"], dev)
     print("dp", json.dumps(rec))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 9")
     # ---- 9. the replicated baseline on the alpha-3 streams
     recs, counts = baseline_path(dev, [
         ("histo_a3", lambda m: histo.make_spec(512, 1 << 20, m), stream_3,
@@ -4059,12 +4298,14 @@ def main() -> int:
         launches[k] += c
     print("baseline", json.dumps(recs))
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 10")
     # ---- 10. the autotuner on the card
     rec, counts = tune_path(dev)
     launches["route_accumulate"] += counts["route_accumulate"]
     print("tune", json.dumps(rec))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 11")
     # ---- 11. StreamEngine at serving size
     t0 = time.perf_counter()
     rec, counts = stream_path(dev, stream_3)
@@ -4074,6 +4315,7 @@ def main() -> int:
     print("stream", json.dumps(rec))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 12")
     # ---- 12. SessionEngine, its durability, HHD and DP sessions
     t0 = time.perf_counter()
     recs, counts = session_path(dev)
@@ -4084,6 +4326,7 @@ def main() -> int:
         print(key, json.dumps(recs[key]))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 13")
     # ---- 13. SessionService over TCP, crashed and recovered behind a new one
     rec, counts = service_path(dev)
     for k, c in counts.items():
@@ -4091,6 +4334,7 @@ def main() -> int:
     print("service", json.dumps(rec))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 14")
     # ---- 14. multi-device Ditto on logical shards of the card
     t0 = time.perf_counter()
     rec, n = pe_sharded_path(dev)
@@ -4107,11 +4351,13 @@ def main() -> int:
     for k in kernels:                     # every main path's count, summed
         k["launches"] = launches[k["name"]]
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase A")
     # ---- A. the MoE LM's kernels against their plain versions
     lm_err = check_lm_kernels(dev)
     print("lm_kernel_check", json.dumps(lm_err))
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase B")
     # ---- B. the LM path at full width (depth cut to LM_LAYERS)
     rec, lm_launches, model, params, tokens, engine = lm_path(dev)
     print("lm_e2e", json.dumps(rec))
@@ -4119,14 +4365,17 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    # ---- C. card against CPU, full width, 2 layers, float32
-    print("lm_cpu_parity", json.dumps(lm_cpu_parity(dev, params)))
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase C")
+    # ---- C. card against CPU, full width, C_PARITY_LAYERS layers, float32
+    print("lm_cpu_parity", json.dumps(lm_cpu_parity(dev, params, layers=C_PARITY_LAYERS)))
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase D")
     # ---- D. the LM kernels' times at the prefill shape
     kernels += lm_kernel_times(dev, model, params, tokens, lm_launches, lm_err)
     del model, params
     torch.cuda.empty_cache()
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase E")
     # ---- E. MLA and deepseek, soft-capped gemma2, the dense configs,
     # mamba2 (SSD), the Jamba hybrid and phi-3-vision
     t0 = time.perf_counter()
@@ -4155,6 +4404,7 @@ def main() -> int:
                        "H=64 KV=8 dh=128; *_phi3: B=1 S=2048 H=KV=32 dh=96 (in the 128 "
                        "template); library_ms_* SDPA without a cap")
 
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase F")
     # ---- F. whisper-base, the encoder-decoder family
     t0 = time.perf_counter()
     rec, counts = whisper_path(dev)
@@ -4168,12 +4418,15 @@ def main() -> int:
     flash["shape"] += ("; *_whisper_encoder: B=4 S=1500 H=KV=8 dh=64 non-causal; "
                        "*_whisper_cross: B=4 Sq=448 Sk=1500 H=KV=8 dh=64 non-causal")
 
-    # ---- G. training: the backward kernel, whisper-base and llama3.2-3b
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase G")
+    # ---- G. training: the backward kernel and the MoE gradients, whisper-base,
+    # llama3.2-3b, moonshot-v1-16b-a3b and mamba2-780m
     t0 = time.perf_counter()
     rec, counts, bwd = training_path(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print("training", json.dumps(rec))
-    flash["launches"] += counts["flash_attention"]
+    for k in kernels:
+        k["launches"] += counts.get(k["name"], 0)
     kernels.append(bwd)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,12 +8,13 @@ selection: no environment variable, no automatic pick, no fallback.
 The two PE updates fold into the carried tensor IN PLACE and return it;
 the MoE pack/unpack and attention return new tensors.
 
-Gradients: on the CPU the plain versions are differentiable PyTorch.  On
-the card attention differentiates through ``FlashAttention`` (its backward
-is the hand-written backward kernel), and the MoE pack and unpack, which
-have no backward kernel yet (ROADMAP.md §1), raise when grad mode is on and
-a float input requires grad, so that no gradient stops silently at a kernel
-launch.
+Gradients: on the card attention differentiates through ``FlashAttention``
+(its backward is the hand-written backward kernel); on the CPU its plain
+version is differentiable PyTorch.  The MoE pack and unpack differentiate
+through ``OnehotDispatch`` and ``OnehotCombine`` on both devices: each is
+the other's transpose, so their backwards are the same two realizations
+(the kernels on the card, the plain versions on the CPU).  Under no_grad
+both wrappers call the realization directly.
 """
 from __future__ import annotations
 
@@ -39,13 +40,6 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def _no_backward(name: str, *tensors) -> None:
-    if _wants_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP.md §1: MoE "
-            "training); call it under torch.no_grad() or on CPU tensors")
 
 
 def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
@@ -92,29 +86,92 @@ def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
     return _cms_cuda(sketch, eff, cols, value)
 
 
-def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
-                    num_pe: int, capacity: int) -> torch.Tensor:
-    """Pack values [G, T, D] into [G, num_pe, capacity, D] capacity slots at
-    (eff, slot) [G, T]; dropped tuples are skipped, duplicate cells sum."""
+def _dispatch(eff, slot, values, num_pe, capacity):
     if not _on_cuda(values):
         return ref.onehot_dispatch(eff, slot, values, num_pe, capacity)
-    _no_backward("onehot_dispatch", values)
     return _dispatch_cuda(eff.to(torch.int32).contiguous(),
                           slot.to(torch.int32).contiguous(), values.contiguous(),
                           num_pe, capacity)
 
 
-def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
-                   gate: torch.Tensor | None = None) -> torch.Tensor:
-    """Unpack [G, num_pe, capacity, D] slots to [G, T, D] tuple order, scaled
-    by ``gate`` [G, T] (None = 1); dropped tuples give zero rows."""
+def _combine(eff, slot, packed, gate):
     if not _on_cuda(packed):
         return ref.onehot_combine(eff, slot, packed, gate)
-    _no_backward("onehot_combine", packed, gate)
     if gate is not None:
         gate = gate.to(packed.dtype).contiguous()
     return _combine_cuda(eff.to(torch.int32).contiguous(),
                          slot.to(torch.int32).contiguous(), packed.contiguous(), gate)
+
+
+class OnehotDispatch(torch.autograd.Function):
+    """``onehot_dispatch`` with its transpose as the gradient:
+    ``OnehotDispatch.apply(eff, slot, values, num_pe, capacity)``.  The
+    gradient of ``packed`` reaches ``values`` by ``onehot_combine(eff, slot,
+    dpacked)`` with gate 1: a dropped tuple's row gets zeros."""
+
+    @staticmethod
+    def forward(ctx, eff, slot, values, num_pe, capacity):
+        ctx.save_for_backward(eff, slot)
+        return _dispatch(eff, slot, values, num_pe, capacity)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dpacked):
+        eff, slot = ctx.saved_tensors
+        return None, None, _combine(eff, slot, dpacked.contiguous(), None), None, None
+
+
+class OnehotCombine(torch.autograd.Function):
+    """``onehot_combine`` with its gradients:
+    ``OnehotCombine.apply(eff, slot, packed, gate)``.  With ``keep`` = eff in
+    [0, P) and slot in [0, C):
+
+      * dpacked = onehot_dispatch(eff, slot, gate * dy) (gate None = 1);
+      * dgate[g, t] = sum_d dy[g, t, d] * packed[g, eff, slot, d], 0 where
+        the tuple was dropped: the rows gathered by ``onehot_combine`` with
+        gate 1, then a row dot with dy.
+
+    The backward casts the gate to ``packed``'s dtype and makes dy
+    contiguous, as the forward's wrapper does."""
+
+    @staticmethod
+    def forward(ctx, eff, slot, packed, gate):
+        ctx.save_for_backward(eff, slot, packed, gate)
+        return _combine(eff, slot, packed, gate)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        eff, slot, packed, gate = ctx.saved_tensors
+        dy = dy.contiguous()
+        dpacked = dgate = None
+        if ctx.needs_input_grad[2]:
+            g = dy if gate is None else dy * gate.to(packed.dtype)[..., None]
+            dpacked = _dispatch(eff, slot, g, packed.shape[1], packed.shape[2])
+        if gate is not None and ctx.needs_input_grad[3]:
+            rows = _combine(eff, slot, packed, None)
+            dgate = (dy * rows).sum(-1).to(gate.dtype)
+        return None, None, dpacked, dgate
+
+
+def onehot_dispatch(eff: torch.Tensor, slot: torch.Tensor, values: torch.Tensor,
+                    num_pe: int, capacity: int) -> torch.Tensor:
+    """Pack values [G, T, D] into [G, num_pe, capacity, D] capacity slots at
+    (eff, slot) [G, T]; dropped tuples are skipped, duplicate cells sum.
+    Under grad, through ``OnehotDispatch``."""
+    if _wants_grad(values):
+        return OnehotDispatch.apply(eff, slot, values, num_pe, capacity)
+    return _dispatch(eff, slot, values, num_pe, capacity)
+
+
+def onehot_combine(eff: torch.Tensor, slot: torch.Tensor, packed: torch.Tensor,
+                   gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Unpack [G, num_pe, capacity, D] slots to [G, T, D] tuple order, scaled
+    by ``gate`` [G, T] (None = 1); dropped tuples give zero rows.  Under
+    grad, through ``OnehotCombine``."""
+    if _wants_grad(packed, gate):
+        return OnehotCombine.apply(eff, slot, packed, gate)
+    return _combine(eff, slot, packed, gate)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

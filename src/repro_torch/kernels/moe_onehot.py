@@ -7,6 +7,10 @@ link kernel and a fill kernel on the current stream), combine gathers one
 packed row per tuple; one call covers all dispatch groups of a layer.
 Both are bound by bytes; the source says how the design meets that.  The
 plain versions are ``ref.onehot_dispatch`` and ``ref.onehot_combine``.
+Each kernel is the other's transpose, so they are also each other's
+gradient: ``dispatch.OnehotDispatch`` and ``OnehotCombine`` launch them in
+their backwards (combine for the pack's dx and for dgate's rows, dispatch
+for the unpack's dpacked), and need no backward kernel of their own.
 """
 from __future__ import annotations
 

@@ -4,12 +4,14 @@
         --reduced --steps 200 --batch 8 --seq 128 --ckpt /tmp/ckpt --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
         --steps 4 --ckpt build/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch jamba-1.5-large-398b --reduced --steps 20 --seq 64
 
 The JAX CLI plus ``--device`` (default ``cuda``, which raises without a
-CUDA device).  It trains the families whose forward is differentiable on
-the card: dense, the VLM and whisper (``--arch``; the MoE kernels have no
-backward kernel yet and raise under grad on the card, ROADMAP.md §1).
-``--reduced`` takes the REDUCED config; without it the full one.  With
+CUDA device).  ``--arch`` takes every config: dense, MoE (the pack and
+unpack kernels are each other's gradient), MLA, SSM, the hybrid (with its
+config's ``adamw8bit``), the VLM and whisper.  ``--reduced`` takes the
+REDUCED config; without it the full one.  With
 ``--ckpt`` it resumes from the directory's newest checkpoint and writes one
 at the end (and every ``--ckpt-every`` steps).
 """

@@ -121,16 +121,18 @@ def mamba2_forward(params, xin, *, d_inner, num_heads, d_state, chunk=256,
     cum = torch.cumsum(da_c, dim=2)                                   # [B,K,Q,H]
     # intra-chunk dual form: L[i,j] = exp(cum_i - cum_j) * dt_j for i >= j;
     # above the diagonal cum_i - cum_j >= 0 may overflow exp, so it is set
-    # to -inf first (exp -> 0), never multiplied by a 0/1 mask (inf * 0)
-    lmat = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # [B,K,i,j,H]
+    # to -inf first (exp -> 0, and exp's backward multiplies by that 0),
+    # never multiplied by a 0/1 mask (inf * 0).  Only the difference is masked in place (the
+    # subtraction's backward keeps no tensor); exp's output is kept for its
+    # backward, so the products after it make new tensors
     upper = torch.ones((chunk, chunk), dtype=torch.bool, device=xin.device).triu(1)
-    lmat.masked_fill_(upper[:, :, None], float("-inf"))
-    lmat.exp_()
-    lmat.mul_(dt_c[:, :, None, :, :])
+    lmat = torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :])       # [B,K,i,j,H]
+                     .masked_fill_(upper[:, :, None], float("-inf")))
+    lmat = lmat * dt_c[:, :, None, :, :]
     cb = torch.einsum("bkin,bkjn->bkij", cc, bb)                      # [B,K,Q,Q] in cd
     # y_intra[i] = sum_j cb[i,j] L[i,j] x[j]: the product with cb first, then
     # a batched matmul over j (one 3-operand einsum may form [B,K,Q,Q,H,P])
-    lmat.mul_(cb.to(f32)[..., None])
+    lmat = lmat * cb.to(f32)[..., None]
     y_intra = torch.einsum("bkijh,bkjhp->bkihp", lmat, xf)
     del lmat
 

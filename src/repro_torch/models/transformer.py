@@ -23,7 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_unzip
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
 MIXER_KINDS = (*ATTN_KINDS, "mla", "mamba")
@@ -41,6 +41,15 @@ def _check_kinds(cfg: ArchConfig):
 def take(tree, i: int):
     """The ``i``-th entry of every leaf of a stacked tree."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack(tree, n: int) -> tuple:
+    """The ``n`` entries of every leaf of a stacked dict tree, as ``n``
+    trees (views).  One ``unbind`` a leaf: its backward stacks the ``n``
+    gradients once, where ``take`` a period would add a zero-filled
+    gradient of the whole stack into the leaf's each period: traffic
+    quadratic in the depth (PERF.md §5)."""
+    return tree_unzip(tree_map(lambda t: t.unbind(0), tree), n)
 
 
 def tree_to(tree, device):
@@ -155,8 +164,7 @@ def forward(cfg: ArchConfig, params, tokens, *, patches=None):
                              f"{(tokens.shape[0], cfg.num_patches, cfg.patch_embed_dim)}")
         x = torch.cat([L.dense(params["patch_proj"], patches, cfg.cdtype), x], dim=1)
     lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_periods):
-        pp = take(params["blocks"], i)
+    for pp in unstack(params["blocks"], cfg.num_periods):
         for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
             h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
             x = x + _apply_mixer(cfg, mk, pp[f"{j}.mixer"], h)

@@ -1436,33 +1436,57 @@ def test_flash_attention_autograd_gradcheck(cuda_device, causal, window, cap):
 
 
 @pytest.mark.cuda
-def test_moe_kernels_raise_under_grad(cuda_device):
-    """The MoE pack and unpack have no backward kernel: on CUDA tensors they
-    raise under grad when a float input requires it, and run under no_grad."""
-    eff = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
-    x = torch.randn((1, 8, 16), device=cuda_device, requires_grad=True)
-    packed = torch.randn((1, 2, 4, 16), device=cuda_device, requires_grad=True)
-    gate = torch.rand((1, 8), device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        dispatch.onehot_dispatch(eff, eff, x, 2, 4)
-    with pytest.raises(NotImplementedError, match="backward"):
-        dispatch.onehot_combine(eff, eff, packed.detach(), gate)
-    with pytest.raises(NotImplementedError, match="backward"):
-        dispatch.onehot_combine(eff, eff, packed)
-    with torch.no_grad():
-        dispatch.onehot_dispatch(eff, eff, x, 2, 4)
-        dispatch.onehot_combine(eff, eff, packed, gate)
+@pytest.mark.parametrize("with_gate", [True, False], ids=["gate", "gate_none"])
+def test_moe_functions_gradcheck(cuda_device, with_gate):
+    """OnehotDispatch and OnehotCombine on CUDA tensors under
+    torch.autograd.gradcheck (float32, eps 1e-3, so atol = rtol = 1e-2: the
+    kernels take no float64), with dropped tuples (eff = -1, the sentinel
+    eff = P, slots past capacity); each backward launches its kernels: the
+    pack's one unpack, the unpack's one pack and, for dgate, one unpack."""
+    rng = np.random.default_rng(7)
+    g, t, pe, cap, d = 2, 24, 3, 5, 8
+    eff = rng.integers(0, pe, (g, t)).astype(np.int32)
+    slot = ops.occurrence_rank(torch.from_numpy(eff), pe).numpy()
+    drop = rng.random((g, t))
+    eff[drop < 0.1], eff[(drop >= 0.1) & (drop < 0.25)] = -1, pe
+    slot[(drop >= 0.25) & (drop < 0.3)] = cap + 3
+    eff, slot = (torch.from_numpy(a).to(cuda_device) for a in (eff, slot))
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((g, t, d), generator=gen, device=cuda_device, requires_grad=True)
+    packed = torch.randn((g, pe, cap, d), generator=gen, device=cuda_device,
+                         requires_grad=True)
+    gate = torch.rand((g, t), generator=gen, device=cuda_device, requires_grad=True)
+    before = (onehot_dispatch.launches, onehot_combine.launches)
+    dispatch.onehot_dispatch(eff, slot, x, pe, cap).sum().backward()
+    dispatch.onehot_combine(eff, slot, packed, gate if with_gate else None).sum().backward()
+    torch.cuda.synchronize()
+    assert (onehot_dispatch.launches - before[0],
+            onehot_combine.launches - before[1]) == (2, 2 + with_gate)
+    tol = {"eps": 1e-3, "atol": 1e-2, "rtol": 1e-2}
+    assert torch.autograd.gradcheck(
+        lambda v: dispatch.onehot_dispatch(eff, slot, v, pe, cap), (x,), **tol)
+    if with_gate:
+        assert torch.autograd.gradcheck(
+            lambda p, gt: dispatch.onehot_combine(eff, slot, p, gt), (packed, gate), **tol)
+    else:
+        assert torch.autograd.gradcheck(
+            lambda p: dispatch.onehot_combine(eff, slot, p), (packed,), **tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["whisper-base", "llama3.2-3b", "gemma2-2b",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b", "mamba2-780m",
+                                  "jamba-1.5-large-398b"])
 def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     """The loss and every gradient of a REDUCED config in float32 (TF32
     off) on the card, through the flash forward and backward kernels (once
-    an attention a call each), against the CPU's plain path on the same
-    weights and batch: the loss within rtol 1e-5, each gradient leaf within
-    atol = 1e-4 * (1 + its max) (sums in another order)."""
+    an attention or MLA layer a call each) and the MoE pack and unpack (2
+    packs and 3 unpacks a MoE layer, forward and backward), against the
+    CPU's plain path on the same weights and batch: the loss within rtol
+    1e-5, each gradient leaf within atol = 1e-4 * (1 + its max) (sums in
+    another order).  The MoE, SSM and hybrid configs take 2 x 64 tokens (two
+    dispatch groups, four SSD chunks), the others 2 x 16."""
     from repro_torch.configs import get_reduced
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import zoo
@@ -1473,7 +1497,7 @@ def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     cpu_model = zoo.build(cfg, device="cpu")
     params = cpu_model.init_params(cpu_model.generator(0))
     rng = np.random.default_rng(0)
-    st = 16
+    st = 64 if cfg.family in ("moe", "ssm", "hybrid") else 16
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, st + 1)).astype(np.int32))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if cfg.family == "encdec":
@@ -1482,20 +1506,24 @@ def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     if cfg.num_patches:
         batch["patches"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.num_patches, cfg.patch_embed_dim)).astype(np.float32)) * 0.02
-    attn = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec"
-            else cfg.num_layers)
+    if cfg.family == "encdec":
+        attn, moe = cfg.encoder_layers + 2 * cfg.num_layers, 0
+    else:
+        attn = sum(k != "mamba" for k in cfg.block_pattern) * cfg.num_periods
+        moe = sum(k == "moe" for k in cfg.ffn_pattern) * cfg.num_periods
+    kernels = (flash_attention, flash_attention_bwd, onehot_dispatch, onehot_combine)
     out = []
     for where in (cuda_device, torch.device("cpu")):
         model = zoo.build(cfg, device=where)
         leaves = tree_map(lambda p: p.detach().clone().requires_grad_(),
                           tree_to(params, where))
-        before = (flash_attention.launches, flash_attention_bwd.launches)
+        before = [k.launches for k in kernels]
         loss, _ = model.loss_fn(leaves, {k: v.to(where) for k, v in batch.items()})
         loss.backward()
         torch.cuda.synchronize()
         if where.type == "cuda":
-            assert (flash_attention.launches - before[0],
-                    flash_attention_bwd.launches - before[1]) == (attn, attn)
+            assert [k.launches - n for k, n in zip(kernels, before)] == \
+                [attn, attn, 2 * moe, 3 * moe]
         out.append((float(loss.detach()), [t.grad.cpu() for t in tree_leaves(leaves)]))
     (l_gpu, g_gpu), (l_cpu, g_cpu) = out
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)

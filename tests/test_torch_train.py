@@ -13,8 +13,9 @@ over by ``interop``) and the same numpy batches.  Tolerances:
     inputs, ties included (``torch.round`` and ``jnp.round`` both round
     half to even); the schedules within rtol = 1e-6;
   * the corpus bytes, and the token batches, identical.
-The MoE, SSM and hybrid configs' losses are compared under no_grad only:
-their training waits for backward kernels (ROADMAP.md §1).
+Every family trains: this file holds the dense, VLM and encoder-decoder
+configs; tests/test_torch_train_families.py the MoE, MLA, SSM and hybrid
+ones with the same helpers and tolerances.
 """
 import functools
 import importlib
@@ -45,7 +46,8 @@ jschedules = importlib.import_module("repro.optim.schedules")
 adamw = importlib.import_module("repro_torch.optim.adamw")
 schedules = importlib.import_module("repro_torch.optim.schedules")
 
-TRAINED = ("llama3_2_3b", "gemma2_2b", "phi3_vision_4_2b", "whisper_base")
+TRAINED = ("llama3_2_3b", "gemma2_2b", "yi_6b", "starcoder2_15b", "phi3_vision_4_2b",
+           "whisper_base")
 
 
 @functools.cache
@@ -95,8 +97,10 @@ def _assert_tree_close(got, want, rtol=1e-4, atol=1e-4):
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_loss_fn_vs_jax(arch):
-    """loss_fn of every REDUCED config under no_grad: the loss, its
-    cross-entropy and the MoE load-balance term (weight 0.01)."""
+    """loss_fn of every REDUCED config under no_grad (the path serving's
+    forward takes, no autograd Function): the loss, its cross-entropy and
+    the MoE load-balance term (weight 0.01).  The gradients are compared in
+    test_loss_and_grads_vs_jax and in test_torch_train_families.py."""
     jmodel, jparams, model, params = _models(arch)
     batch = _batch(model.cfg, s=64 if model.cfg.family in ("moe", "hybrid") else 16)
     want, jm = jmodel.loss_fn(jparams, _jax(batch))
@@ -111,8 +115,9 @@ def test_loss_fn_vs_jax(arch):
 @pytest.mark.parametrize("arch", TRAINED)
 def test_loss_and_grads_vs_jax(arch):
     """The loss and every gradient leaf against jax.value_and_grad: llama,
-    gemma2 (attention and logit caps, its window of 8 under 16 tokens),
-    phi-3-vision (patch positions dropped from the loss) and whisper."""
+    gemma2 (attention and logit caps, its window of 8 under 16 tokens), yi
+    and starcoder2 (GQA, the GELU MLP), phi-3-vision (patch positions
+    dropped from the loss) and whisper."""
     jmodel, jparams, model, params = _models(arch)
     batch = _batch(model.cfg, seed=1)
     (want, _), jgrads = jax.value_and_grad(jmodel.loss_fn, has_aux=True)(
@@ -166,6 +171,12 @@ def test_train_step_vs_jax(arch, opt, compress):
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
     assert int(st.step) == int(jst.step) == steps
+    _assert_state_close(st, jst, opt, compress)
+
+
+def _assert_state_close(st, jst, opt, compress=False):
+    """Params, the optimizer state and the compression residual of a port
+    TrainState against JAX's, within the module docstring's tolerances."""
     _assert_tree_close(st.params, jst.params)
     if opt == "adamw":
         _assert_tree_close(st.opt_state, jst.opt_state)

@@ -19,13 +19,21 @@ inputs made from a seed:
     shape (B = 4, S = 1024, H = KV = 16, dh = 128) and gemma2's (H 8 / KV 4,
     dh 256), causal, bf16, against SDPA, and its card time alone; its
     outputs there and in float32
-    are hashed, and the roots' hashes must agree (``flash_identical``: the
+    are hashed, and the roots' hashes must agree (``identical``: the
     uncapped kernel's output bit for bit);
   - ``flash_attention_bwd`` in bf16 at phase G's timed shapes
     (``chip_smoke.G_BWD_TIMED``: llama3.2-3b's training shape, gemma2's
     with cap 50, whisper's encoder and cross), against aten's flash
     backward (``chip_smoke.sdpa_flash_bwd``, no cap).  Its outputs are not
     hashed: bf16 dq is summed by atomics and varies in its last bits.
+  - ``ssd``: mamba2-780m's prefill at full width and depth (48 layers,
+    seeded weights, [4, 1024] bf16, phase E (h)'s shape) under no_grad: ms
+    a forward, and a hash of its logits (the SSD has no kernel; this times
+    the plain PyTorch SSD of each root).
+  - ``train``: mamba2-780m's training step at full width and depth
+    (``chip_smoke.train_steps``: adamw, [2, 1024] bf16 compute, 5 steps on
+    one fixed batch): ms a step after the first (host clock, each step
+    ends in reading its loss), the peak memory, and a hash of the losses.
 ``ms`` is a call's time from CUDA events over back-to-back calls;
 ``device_ms`` the card's time of every kernel and memset a call launches,
 from ``chip_smoke.device_ms`` (null where torch.profiler missed launches).
@@ -35,7 +43,9 @@ mean of each number per root (null if any turn's is null).
 
     python3 tools/kernel_turns.py --only bwd PARENT_ROOT .
 
-times only the named groups (``route``, ``dispatch``, ``flash``, ``bwd``).
+times only the named groups (``route``, ``dispatch``, ``flash``, ``bwd``,
+``ssd``, ``train``).  ``identical`` says, for each hashed output, whether every turn
+of every root gave the same bits.
 """
 from __future__ import annotations
 
@@ -50,7 +60,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 SEED = 3
-GROUPS = ("route", "dispatch", "flash", "bwd")
+GROUPS = ("route", "dispatch", "flash", "bwd", "ssd", "train")
 # the backward's kernels: Delta, then dK/dV and dQ (before the redesign) or
 # the one-pass tile kernel and the conversion; three a bf16 call either way
 BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "bwd_tile_kernel",
@@ -72,6 +82,14 @@ def child(root: Path, groups: tuple[str, ...] = GROUPS) -> dict:
         out.update(time_flash(dev))
     if "bwd" in groups:
         out.update(time_bwd(dev))
+    if "ssd" in groups:
+        ssd, digest = time_ssd(dev)
+        out["ssd_prefill"] = ssd
+        out["digests"]["ssd_prefill_logits"] = digest
+    if "train" in groups:
+        step, digest = time_train(dev)
+        out["mamba2_train_step"] = step
+        out["digests"]["mamba2_train_losses"] = digest
     return out
 
 
@@ -175,6 +193,40 @@ def time_bwd(dev) -> dict:
     return out
 
 
+def time_ssd(dev) -> tuple[dict, str]:
+    from chip_smoke import cuda_ms, prefill_batch
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    model = zoo.build(get("mamba2-780m"), device=dev)
+    params = model.init_params(model.generator(SEED))
+    batch = prefill_batch(model.cfg, (4, 1024), dev)
+    with torch.no_grad():
+        logits = model.prefill_fn(params, batch)
+        digest = hashlib.sha1(logits.float().cpu().numpy().tobytes()).hexdigest()
+        ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=10, warmup=2)
+    del model, params, logits
+    torch.cuda.empty_cache()
+    return {"ms": ms}, digest
+
+
+def time_train(dev) -> tuple[dict, str]:
+    from chip_smoke import lm_train_batch, train_steps
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    from repro_torch.optim import warmup_cosine
+    model = zoo.build(get("mamba2-780m"), device=dev)
+    params = model.init_params(model.generator(SEED))
+    torch.cuda.reset_peak_memory_stats(dev)     # after the first allocation
+    steps = 5
+    _, losses, secs, _ = train_steps(model, params, lm_train_batch(model.cfg, (2, 1024), dev),
+                                     steps, warmup_cosine(model.cfg.max_lr, 1, steps))
+    out = {"ms": 1e3 * sum(secs[1:]) / (steps - 1),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model, params
+    torch.cuda.empty_cache()
+    return out, hashlib.sha1(json.dumps(losses).encode()).hexdigest()
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -215,7 +267,8 @@ def main(argv: list[str]) -> int:
              for root, runs in results.items()}
     digests = [run["digests"] for runs in results.values() for run in runs]
     print(json.dumps({"mean": means,
-                      "flash_identical": all(d == digests[0] for d in digests)}))
+                      "identical": {k: all(d[k] == digests[0][k] for d in digests)
+                                    for k in digests[0]}}))
     return 0
 
 
