@@ -259,6 +259,18 @@ Then the other configs, one model on the card at a time:
      step against the CPU optimizer applied to the card's gradients.  Prints the training
      line: ms a step, tokens/s, peak memory and the kernels' shares of a
      profiled step with its top kernels.
+  H. the dry-run side, no kernel: (a) python -m repro_torch.launch.dryrun
+     --arch all --shape all --mesh both in a process of its own (a fake
+     process group of 512 ranks, every state on meta): it exits 0 and each
+     of the 80 cells is ok or JAX's long_500k skip; one line a mesh with
+     the cells ok and skipped and the largest per-device argument GB
+     against 80; (b) the cost model's FLOPs of the steps timed above, the
+     llama3.2-3b training step of G (c) and its [1, 1024] prefill of E,
+     over the measured seconds times the bf16 peak (989.4e12): each share
+     in (0, 1.05], printed beside the card's name and power limit; (c) the
+     dry run's bytes of G (c)'s training state on a 1 x 1 mesh against
+     torch.cuda.memory_allocated() once that state is built: within 2%.
+     Prints the dryrun line.
 Prints the throughput of each configuration, the card's name and power
 limit, a {"kernels": [...]} line of six entries (each PE kernel's launches
 summed over the count windows of phases 3, 7, 9, 10, 11, 12, 13 and 14:
@@ -272,6 +284,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -4044,6 +4057,120 @@ def training_path(dev) -> tuple[dict, dict, dict]:
     return rec, total, entry
 
 
+# ------------------------------------------------------------------ phase H
+H_DRYRUN_TIMEOUT = 300        # s for the dry run's own process
+H_SHARE_MAX = 1.05            # a share above this means the count is too large
+H_RESIDENCY_TOL = 0.02        # dry-run state bytes against memory_allocated
+
+
+def card_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    assert smi.returncode == 0, smi.stderr
+    return smi.stdout.strip().splitlines()[0]
+
+
+def dryrun_cli() -> dict:
+    """Phase H (a): the dry run over every arch, shape and both meshes, in a
+    process of its own (its fake process group is global), writing under
+    build/dryrun_torch.  Every cell ok but JAX's long_500k skips."""
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import ARCHS
+    from repro_torch.launch.dryrun_rules import cell_skip_reason
+    from repro_torch.configs.base import SHAPES
+    out = REPO / "build" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+                           "--shape", "all", "--mesh", "both", "--out", str(out), "--force"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=H_DRYRUN_TIMEOUT)
+    rec = {"run_s": time.perf_counter() - t0, "rc": proc.returncode}
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    for mesh in ("single", "multi"):
+        ok = skipped = 0
+        largest = 0.0
+        for arch in ARCHS:
+            for shape in SHAPES:
+                cell = json.loads((out / mesh / f"{arch}__{shape}.json").read_text())
+                reason = cell_skip_reason(get(arch), shape)
+                if reason:
+                    assert shape == "long_500k" and cell["status"] == "skip", cell
+                    skipped += 1
+                    continue
+                assert cell["status"] == "ok", cell
+                assert cell["memory"]["fits_hbm"], cell
+                ok += 1
+                largest = max(largest, cell["memory"]["resident_argument_bytes"] / 1e9)
+        assert ok + skipped == len(ARCHS) * len(SHAPES)
+        rec[mesh] = {"ok": ok, "skipped": skipped, "largest_argument_gb": largest}
+        print(f"dryrun mesh {mesh}: {ok} ok, {skipped} skipped (long_500k), largest "
+              f"argument bytes a device {largest:.3f} GB of 80")
+    return rec
+
+
+def flop_shares(llama_step_ms: float, llama_prefill: dict) -> dict:
+    """Phase H (b): launch/costmodel.py's FLOPs of two steps timed above,
+    over their measured seconds times the card's bf16 peak.  The training
+    step's shape is G_LLAMA's, the prefill's its phase E record's (its
+    layers, tokens [b, s] and patches)."""
+    from repro_torch.configs import get
+    from repro_torch.launch.costmodel import cell_flops
+    from repro_torch.launch.mesh import H100
+    layers, (b, s), _ = G_LLAMA
+    full = get("llama3.2-3b")
+    pb, ps = llama_prefill["tokens"]
+    steps = {"llama_train": (dataclasses.replace(full, num_layers=layers),
+                             dict(kind="train", seq_len=s, global_batch=b), llama_step_ms),
+             "llama_prefill": (dataclasses.replace(full, num_layers=llama_prefill["layers"]),
+                               dict(kind="prefill", seq_len=ps + llama_prefill["patches"],
+                                    global_batch=pb),
+                               llama_prefill["ms_per_forward"])}
+    limit = card_limit()
+    rec = {}
+    for key, (cfg, shape, ms) in steps.items():
+        flops = cell_flops(cfg, shape)["total"]
+        share = flops / (ms * 1e-3 * H100.peak_flops)
+        rec[key] = {"layers": cfg.num_layers, "shape": shape, "flops": flops,
+                    "measured_ms": ms, "share_of_bf16_peak": share}
+        print(f"flop_share {key}: {flops:.4e} FLOPs in {ms:.3f} ms = {share:.4f} of "
+              f"{H100.peak_flops:.4e} FLOP/s ({limit})")
+        assert 0 < share <= H_SHARE_MAX, (key, share)
+    return rec
+
+
+def residency(dev) -> dict:
+    """Phase H (c): the dry run's bytes of phase G (c)'s training state (its
+    config, optimizer and batch) on a 1 x 1 mesh against what the card
+    allocates to build that state."""
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import train_state_bytes
+    from repro_torch.models import zoo
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train.state import TrainState
+    layers, (b, s), _ = G_LLAMA
+    cfg = dataclasses.replace(get("llama3.2-3b"), num_layers=layers)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    model = zoo.build(cfg, device=dev)
+    params = model.init_params(model.generator(SEED))
+    state = TrainState(step=torch.zeros((), dtype=torch.int32, device=dev), params=params,
+                       opt_state=make_optimizer(cfg.optimizer, constant(cfg.max_lr)).init(params))
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) - before
+    want = train_state_bytes(cfg, dict(kind="train", seq_len=s, global_batch=b))
+    rel = abs(held - want) / want
+    del state, params, model
+    torch.cuda.empty_cache()
+    print(f"residency llama3.2-3b {layers} layers: dry run {want} B, "
+          f"memory_allocated {held} B, {rel:.3e} apart")
+    assert rel <= H_RESIDENCY_TOL, (held, want)
+    return {"dryrun_bytes": want, "allocated_bytes": held, "rel_diff": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -4382,6 +4509,8 @@ def main() -> int:
     rec, counts = lm_configs_path(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print("lm_configs", json.dumps(rec))
+    llama = next(c for c in rec["configs"] if c["arch"] == "llama3.2-3b")
+    llama_prefill = dict(llama["prefill"][0], layers=llama["layers"])
     for k in kernels:
         k["launches"] += counts.get(k["name"], 0)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
@@ -4428,13 +4557,18 @@ def main() -> int:
     for k in kernels:
         k["launches"] += counts.get(k["name"], 0)
     kernels.append(bwd)
+    llama_step_ms = rec["llama"]["ms_per_step"]
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    assert smi.returncode == 0, smi.stderr
+    print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase H")
+    # ---- H. the dry run, the cost model against the card, residency
+    t0 = time.perf_counter()
+    rec = {"cli": dryrun_cli(), "flop_shares": flop_shares(llama_step_ms, llama_prefill),
+           "residency": residency(dev)}
+    rec["phase_s"] = time.perf_counter() - t0
+    print("dryrun", json.dumps(rec))
+
     print(f"total_s {time.perf_counter() - t_start:.3f}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_limit())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ the VLM's patch frontend; whisper's encoder and learned decoder positions;
 the trainer's peak learning rate and optimizer), with torch dtypes behind
 ``cdtype`` and ``pdtype``.  ``moe_impl`` is gone: its three values compute one function
 in the JAX package, and the port has one realization (the tensor's device
-picks plain PyTorch or the CUDA kernels).
+picks plain PyTorch or the CUDA kernels).  So are ``remat`` and the
+attention chunk sizes: the port keeps no activation checkpointing, and its
+attention is one kernel.  ``SHAPES`` holds the dry run's four cell shapes.
 """
 from __future__ import annotations
 
@@ -116,3 +118,21 @@ class ArchConfig:
     @property
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
+
+
+# The four input shapes of the LM-family cells, as in
+# ``repro/configs/base.py``: one training, one prefill and two decode shapes.
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def shape_spec(shape) -> dict:
+    """The cell shape ``shape`` names in SHAPES, or ``shape`` itself when it
+    is already such a dict ({"kind", "seq_len", "global_batch"}): the dry
+    run and the cost model also take shapes of their own, such as a
+    measured step's."""
+    return SHAPES[shape] if isinstance(shape, str) else shape

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import dispatch as K
 from repro_torch.models import layers as L
+from repro_torch.sharding.policies import P
 
 NEG_INF = -1e30
 FAR = 2**30          # position of a key that is never valid
@@ -34,6 +35,15 @@ def attn_params(gen, d_model, num_heads, num_kv, head_dim, dtype=torch.float32):
     }
 
 
+def attn_pspec():
+    return {"wq": P("data", "model", None), "wk": P("data", "model", None),
+            "wv": P("data", "model", None), "wo": P("model", None, "data")}
+
+
+def attn_contracting():
+    return {"wq": (0,), "wk": (0,), "wv": (0,), "wo": (0, 1)}
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # [B, max_len, num_kv, head_dim]
     v: torch.Tensor  # [B, max_len, num_kv, head_dim]
@@ -43,6 +53,13 @@ def init_kv_cache(batch, max_len, num_kv, head_dim, dtype, device):
     shape = (batch, max_len, num_kv, head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_cache_pspec():
+    # seq over 'model': kv-head counts (4/8) rarely divide a TP axis, and
+    # the decode caches are the big decode-side buffers
+    return KVCache(k=P(("pod", "data"), "model", None, None),
+                   v=P(("pod", "data"), "model", None, None))
 
 
 def sdpa_decode(q, k, v, *, q_pos, k_pos, window=None, softcap_val=0.0):

@@ -1,17 +1,38 @@
 """Shared layers (plain functions on tensors; params are nested dicts).
 
 The PyTorch counterpart of ``repro/models/layers.py``.  Initializers take
-an explicit ``torch.Generator`` and make their tensors on its device.  There
-is no mesh in the port yet, so the sharding anchors and pspecs are gone.
+an explicit ``torch.Generator`` and make their tensors on its device; a
+``ShapeOnly`` in its place makes ``meta`` tensors, the dry run's stand-ins
+of JAX's ``ShapeDtypeStruct``s (no generator lives on ``meta``).  Every
+``*_params`` initializer has a ``*_pspec`` twin returning the same tree of
+``sharding.P`` specs ('model' = TP, 'data' = FSDP parameter sharding, batch
+is ('pod','data'); see sharding/policies.py), and one with weights has a
+``*_contracting`` twin giving each weight leaf the dims its forward
+product contracts, in one layer's layout (a leaf sharded over 'model' on
+such a dim leaves partial sums to all-reduce).  The port computes on one
+device, so JAX's activation anchors have no counterpart: the specs serve
+the dry run (launch/dryrun.py).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.policies import P
+
+META = torch.device("meta")
+
+
+class ShapeOnly:
+    """Stands where an initializer takes a generator: its tensors are made
+    on ``meta``, with their shapes and dtypes and no values."""
+    device = META
+
 
 def truncnorm(gen: torch.Generator, shape, scale, dtype=torch.float32) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], cast to ``dtype``, times scale."""
+    if gen.device == META:
+        return torch.empty(shape, dtype=dtype, device=META)
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.to(dtype) * scale
@@ -20,6 +41,14 @@ def truncnorm(gen: torch.Generator, shape, scale, dtype=torch.float32) -> torch.
 def dense_params(gen, d_in, d_out, dtype=torch.float32, scale=None):
     scale = scale if scale is not None else d_in ** -0.5
     return {"w": truncnorm(gen, (d_in, d_out), scale, dtype)}
+
+
+def dense_pspec(in_axis, out_axis):
+    return {"w": P(in_axis, out_axis)}
+
+
+def dense_contracting():
+    return {"w": (0,)}
 
 
 def dense(params, x, compute_dtype=None):
@@ -34,6 +63,10 @@ def rmsnorm_params(d, device):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+def rmsnorm_pspec():
+    return {"scale": P(None)}
+
+
 def rmsnorm(params, x, eps=1e-6):
     dt = x.dtype
     x = x.float()
@@ -43,6 +76,16 @@ def rmsnorm(params, x, eps=1e-6):
 
 def embed_params(gen, vocab, d, dtype=torch.float32):
     return {"emb": truncnorm(gen, (vocab, d), 1.0, dtype)}
+
+
+def embed_pspec():
+    # vocab over 'model' (TP unembedding), d_model over 'data' (FSDP)
+    return {"emb": P("model", "data")}
+
+
+def embed_contracting():
+    # the lookup is a one-hot product over the vocab rows
+    return {"emb": (0,)}
 
 
 def embed_lookup(params, tokens, compute_dtype):
@@ -86,6 +129,20 @@ def mlp_params(gen, d, d_ff, dtype=torch.float32, gated=True):
     return p
 
 
+def mlp_pspec(gated=True):
+    p = {"up": dense_pspec("data", "model"), "down": dense_pspec("model", "data")}
+    if gated:
+        p["gate"] = dense_pspec("data", "model")
+    return p
+
+
+def mlp_contracting(gated=True):
+    p = {"up": dense_contracting(), "down": dense_contracting()}
+    if gated:
+        p["gate"] = dense_contracting()
+    return p
+
+
 def mlp(params, x, act="silu", compute_dtype=None):
     h = dense(params["up"], x, compute_dtype)
     if "gate" in params:
@@ -115,6 +172,10 @@ def apply_rope(x, cos, sin):
 def layernorm_params(d, device):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_pspec():
+    return {"scale": P(None), "bias": P(None)}
 
 
 def layernorm(params, x, eps=1e-5):

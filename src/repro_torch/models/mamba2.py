@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.policies import P
 
 CONV_K = 4  # depthwise causal conv kernel width (Mamba default)
 
@@ -44,6 +45,19 @@ def mamba2_params(gen, d_model, d_inner, num_heads, d_state, dtype=torch.float32
     }
 
 
+def mamba2_pspec():
+    return {"in_proj": P("data", "model"), "conv_w": P(None, "model"),
+            "conv_b": P("model"), "a_log": P("model"), "d_skip": P("model"),
+            "dt_bias": P("model"), "norm": L.rmsnorm_pspec(),
+            "out_proj": P("model", "data")}
+
+
+def mamba2_contracting():
+    # the conv is depthwise and the rest per channel: nothing contracted
+    return {"in_proj": (0,), "conv_w": (), "conv_b": (), "a_log": (), "d_skip": (),
+            "dt_bias": (), "out_proj": (0,)}
+
+
 class MambaCache(NamedTuple):
     state: torch.Tensor  # [B, H, P, N] SSM state
     conv: torch.Tensor   # [B, CONV_K-1, d_inner + 2*d_state] conv tail
@@ -56,6 +70,11 @@ def init_mamba_cache(batch, d_inner, num_heads, d_state, dtype, device):
                           device=device),
         conv=torch.zeros((batch, CONV_K - 1, d_inner + 2 * d_state), dtype=dtype,
                          device=device))
+
+
+def mamba_cache_pspec():
+    return MambaCache(state=P(("pod", "data"), "model", None, None),
+                      conv=P(("pod", "data"), None, "model"))
 
 
 def _split_proj(proj, d_inner, d_state, num_heads):

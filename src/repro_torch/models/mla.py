@@ -1,6 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V2), the mixer of deepseek-v2-lite.
 
-The PyTorch counterpart of ``repro/models/mla.py`` (without the pspecs).
+The PyTorch counterpart of ``repro/models/mla.py``.
 Keys and values are compressed into a per-token latent c_kv (kv_lora_rank)
 plus one shared RoPE key (qk_rope_dim); the decode cache holds only
 (c_kv, k_rope).  Prefill expands K/V per head and goes through
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch as K
 from repro_torch.models import layers as L
+from repro_torch.sharding.policies import P
 
 
 def mla_params(gen, d_model, num_heads, kv_lora, qk_nope, qk_rope, v_head,
@@ -35,6 +36,17 @@ def mla_params(gen, d_model, num_heads, kv_lora, qk_nope, qk_rope, v_head,
     }
 
 
+def mla_pspec():
+    return {"wq": P("data", "model", None), "wdkv": P("data", None),
+            "kv_norm": L.rmsnorm_pspec(),
+            "wuk": P(None, "model", None), "wuv": P(None, "model", None),
+            "wo": P("model", None, "data")}
+
+
+def mla_contracting():
+    return {"wq": (0,), "wdkv": (0,), "wuk": (0,), "wuv": (0,), "wo": (0, 1)}
+
+
 class MLACache(NamedTuple):
     c_kv: torch.Tensor    # [B, max_len, kv_lora]
     k_rope: torch.Tensor  # [B, max_len, qk_rope]
@@ -44,6 +56,12 @@ def init_mla_cache(batch, max_len, kv_lora, qk_rope, dtype, device):
     return MLACache(
         c_kv=torch.zeros((batch, max_len, kv_lora), dtype=dtype, device=device),
         k_rope=torch.zeros((batch, max_len, qk_rope), dtype=dtype, device=device))
+
+
+def mla_cache_pspec():
+    # seq over 'model', as attention.kv_cache_pspec
+    return MLACache(c_kv=P(("pod", "data"), "model", None),
+                    k_rope=P(("pod", "data"), "model", None))
 
 
 def _project_latent(params, x, qk_rope, rope_theta, positions, cd):

@@ -34,6 +34,7 @@ from repro_torch.core import scheduler as core_scheduler
 from repro_torch.kernels import dispatch as K
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.policies import P
 
 
 def moe_params(gen, d_model, d_ff, num_experts, dtype=torch.float32,
@@ -48,6 +49,28 @@ def moe_params(gen, d_model, d_ff, num_experts, dtype=torch.float32,
     if num_shared:
         p["shared"] = L.mlp_params(gen, d_model, shared_d_ff or d_ff * num_shared,
                                    dtype)
+    return p
+
+
+def moe_pspec(num_shared: int = 0):
+    p = {"router": P(None, None),
+         "up": P("model", "data", None), "gate": P("model", "data", None),
+         "down": P("model", None, "data")}
+    if num_shared:
+        p["shared"] = L.mlp_pspec()
+    return p
+
+
+# the expert-indexed weights [E, ., .]; an expert-parallel layout (experts
+# over 'model') sends each layer's dispatched tokens all-to-all, which the
+# dry run charges at the first of them
+EXPERT_LEAVES = ("up", "gate", "down")
+
+
+def moe_contracting(num_shared: int = 0):
+    p = {"router": (0,), "up": (1,), "gate": (1,), "down": (1,)}
+    if num_shared:
+        p["shared"] = L.mlp_contracting()
     return p
 
 
@@ -85,10 +108,31 @@ def place_slot_weights(params, assignment: torch.Tensor, num_experts: int,
         torch.zeros((s_pad - slots,), dtype=torch.int32, device=dev)]).long()
     dt = dtype or params["up"].dtype
     out = dict(params)
-    for name in ("up", "gate", "down"):
-        out[f"{name}_slots"] = params[name].index_select(0, slot_expert).to(dt)
+    for name in EXPERT_LEAVES:
+        out[slot_name(name)] = params[name].index_select(0, slot_expert).to(dt)
         out.pop(name)
     out["slot_assignment"] = assignment.to(torch.int32)
+    return out
+
+
+def slot_name(name: str) -> str:
+    """The key of an expert leaf's per-slot copy."""
+    return f"{name}_slots"
+
+
+def slot_weights_contracting(base: dict) -> dict:
+    """The contracting dims of ``place_slot_weights``'s output."""
+    out = dict(base)
+    for name in EXPERT_LEAVES:
+        out[slot_name(name)] = out.pop(name)
+    return out
+
+
+def slot_weights_pspec(base_pspec: dict) -> dict:
+    """The spec tree of ``place_slot_weights``'s output: the slots over
+    'model' as the experts were."""
+    out = slot_weights_contracting(base_pspec)
+    out["slot_assignment"] = P(None)
     return out
 
 

@@ -23,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.sharding.policies import P
 from repro_torch.tree import tree_map, tree_unzip
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
@@ -107,6 +108,64 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
     if cfg.num_patches:
         p["patch_proj"] = L.dense_params(gen, cfg.patch_embed_dim, cfg.d_model,
                                          cfg.pdtype)
+    return p
+
+
+def _stacked(spec_tree):
+    """Specs of leaves stacked over periods (or layers): a leading None."""
+    return tree_map(lambda spec: P(None, *spec), spec_tree)
+
+
+def _mixer_pspec(kind: str):
+    if kind == "mamba":
+        return M.mamba2_pspec()
+    if kind == "mla":
+        return MLA.mla_pspec()
+    return A.attn_pspec()
+
+
+def period_pspec(cfg: ArchConfig):
+    """The spec tree of ``period_params``."""
+    _check_kinds(cfg)
+    p = {}
+    for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
+        p[f"{j}.norm1"] = L.rmsnorm_pspec()
+        p[f"{j}.mixer"] = _mixer_pspec(mk)
+        if fk == "none":
+            continue
+        p[f"{j}.norm2"] = L.rmsnorm_pspec()
+        p[f"{j}.ffn"] = (L.mlp_pspec(gated=cfg.mlp_gated) if fk == "dense"
+                         else MOE.moe_pspec(cfg.num_shared_experts))
+    return p
+
+
+def params_pspec(cfg: ArchConfig):
+    """The spec tree of ``init_params``."""
+    p = {"embed": L.embed_pspec(), "blocks": _stacked(period_pspec(cfg)),
+         "final_norm": L.rmsnorm_pspec()}
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_pspec("data", "model")
+    if cfg.num_patches:
+        p["patch_proj"] = L.dense_pspec(None, "data")
+    return p
+
+
+def params_contracting(cfg: ArchConfig):
+    """The contracting dims of ``init_params``'s weight leaves (layers.py),
+    the blocks' in one period's layout."""
+    _check_kinds(cfg)
+    blocks = {}
+    for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
+        blocks[f"{j}.mixer"] = (M.mamba2_contracting() if mk == "mamba" else
+                                MLA.mla_contracting() if mk == "mla" else A.attn_contracting())
+        if fk != "none":
+            blocks[f"{j}.ffn"] = (L.mlp_contracting(gated=cfg.mlp_gated) if fk == "dense"
+                                  else MOE.moe_contracting(cfg.num_shared_experts))
+    p = {"embed": L.embed_contracting(), "blocks": blocks}
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_contracting()
+    if cfg.num_patches:
+        p["patch_proj"] = L.dense_contracting()
     return p
 
 
@@ -202,6 +261,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict[str, A
         caches[str(j)] = type(c)(*(t.view(cfg.num_periods, batch, *t.shape[1:])
                                    for t in c))
     return caches
+
+
+def cache_pspec(cfg: ArchConfig):
+    """The spec tree of ``init_cache``."""
+    _check_kinds(cfg)
+    caches = {}
+    for j, mk in enumerate(cfg.block_pattern):
+        caches[str(j)] = (MLA.mla_cache_pspec() if mk == "mla" else
+                          M.mamba_cache_pspec() if mk == "mamba" else A.kv_cache_pspec())
+    return _stacked(caches)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):

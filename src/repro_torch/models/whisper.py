@@ -25,7 +25,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _stack, take
+from repro_torch.models.transformer import _stack, _stacked, take
+from repro_torch.sharding.policies import P
 
 
 def _sinusoid(length: int, dim: int, device) -> torch.Tensor:
@@ -69,6 +70,36 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
         "decoder": _stack([_dec_layer(cfg, gen) for _ in range(cfg.num_layers)]),
         "dec_norm": L.layernorm_params(cfg.d_model, dev),
     }
+
+
+def params_pspec(cfg: ArchConfig):
+    """The spec tree of ``init_params``."""
+    del cfg
+    enc = {"norm1": L.layernorm_pspec(), "attn": A.attn_pspec(),
+           "norm2": L.layernorm_pspec(), "ffn": L.mlp_pspec(gated=False)}
+    dec = {"norm1": L.layernorm_pspec(), "self_attn": A.attn_pspec(),
+           "norm_x": L.layernorm_pspec(), "cross_attn": A.attn_pspec(),
+           "norm2": L.layernorm_pspec(), "ffn": L.mlp_pspec(gated=False)}
+    return {"embed": L.embed_pspec(), "pos_dec": P(None, "data"),
+            "encoder": _stacked(enc), "enc_norm": L.layernorm_pspec(),
+            "decoder": _stacked(dec), "dec_norm": L.layernorm_pspec()}
+
+
+def params_contracting(cfg: ArchConfig):
+    """The contracting dims of ``init_params``'s weight leaves (layers.py),
+    the stacks' in one layer's layout."""
+    del cfg
+    ffn = L.mlp_contracting(gated=False)
+    return {"embed": L.embed_contracting(),
+            "encoder": {"attn": A.attn_contracting(), "ffn": ffn},
+            "decoder": {"self_attn": A.attn_contracting(),
+                        "cross_attn": A.attn_contracting(), "ffn": ffn}}
+
+
+# the param subtrees a decode step does not read: the encoder ran at
+# admission, and the cache holds the memory's cross-attention K/V
+DECODE_UNREAD = (("encoder",), ("enc_norm",), ("decoder", "cross_attn", "wk"),
+                 ("decoder", "cross_attn", "wv"))
 
 
 def _attend(cfg: ArchConfig, pp, x, causal: bool, kv_override=None):
@@ -135,6 +166,13 @@ def init_cache(cfg: ArchConfig, params, batch: int, max_len: int, memory=None,
     ck = torch.einsum("bsd,ldhk->lbshk", mem, cross["wk"].to(cd))
     cv = torch.einsum("bsd,ldhk->lbshk", mem, cross["wv"].to(cd))
     return WhisperCache(self_kv=self_kv, cross_k=ck, cross_v=cv)
+
+
+def cache_pspec(cfg: ArchConfig):
+    """The spec tree of ``init_cache``."""
+    del cfg
+    cross = P(None, ("pod", "data"), None, "model", None)
+    return WhisperCache(self_kv=_stacked(A.kv_cache_pspec()), cross_k=cross, cross_v=cross)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache: WhisperCache, cache_len):

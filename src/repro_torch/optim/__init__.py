@@ -1,6 +1,6 @@
 """Optimizers, schedules and gradient compression over the port's trees of
-tensors (the counterparts of ``repro/optim``; the sharding specs come with
-the dry-run slice)."""
+tensors (the counterparts of ``repro/optim``, their state specs
+included)."""
 from repro_torch.optim.adamw import (AdamW8bitState, AdamWState, Optimizer, adamw,
                                      adamw8bit, apply_updates, clip_by_global_norm,
                                      make_optimizer)

@@ -13,6 +13,8 @@ the bias corrections are float32 tensors computed from it, as in JAX.  The
 8-bit variant stores both moments as int8 with one float32 scale per
 trailing row (scale shape = leaf.shape[:-1]); ``torch.round`` rounds half
 to even, as ``jnp.round`` does, so the codes equal JAX's on equal inputs.
+``state_pspec`` maps a params spec tree to the state's: the moments shard
+as their params, the 8-bit scales with the last entry dropped.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.sharding.policies import P
 from repro_torch.tree import tree_leaves, tree_map, tree_unzip
 
 Params = Any
@@ -42,6 +45,7 @@ class AdamW8bitState(NamedTuple):
 class Optimizer:
     init: Callable[[Params], Any]
     update: Callable[..., Any]   # (grads, state, params, step) -> (updates, state)
+    state_pspec: Callable[[Any], Any]  # params spec tree -> state spec tree
     name: str = "adamw"
 
 
@@ -83,7 +87,10 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
 
         return tree_map(upd, mu, nu, params), AdamWState(mu=mu, nu=nu)
 
-    return Optimizer(init=init, update=update, name="adamw")
+    def state_pspec(params_pspec):
+        return AdamWState(mu=params_pspec, nu=params_pspec)
+
+    return Optimizer(init=init, update=update, state_pspec=state_pspec, name="adamw")
 
 
 # ------------------------------------------------------------- int8 moments
@@ -127,7 +134,13 @@ def adamw8bit(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimize
         u, mq, ms, vq, vs = tree_unzip(out, 5)
         return u, AdamW8bitState(mu_q=mq, mu_scale=ms, nu_q=vq, nu_scale=vs)
 
-    return Optimizer(init=init, update=update, name="adamw8bit")
+    def state_pspec(params_pspec):
+        scales = tree_map(lambda s: P(*s[:-1]), params_pspec)
+        return AdamW8bitState(mu_q=params_pspec, mu_scale=scales,
+                              nu_q=params_pspec, nu_scale=scales)
+
+    return Optimizer(init=init, update=update, state_pspec=state_pspec,
+                     name="adamw8bit")
 
 
 def make_optimizer(name: str, schedule, **kw) -> Optimizer:

@@ -1,10 +1,16 @@
-"""Maps over the port's trees: nested dicts, named tuples, tuples and lists
-of tensors (params, caches, optimizer states), the roles ``jax.tree.map``
-and ``jax.tree.leaves`` play in the JAX package.  ``None`` is an empty
-subtree, as in JAX."""
+"""Maps over the port's trees: nested dicts, named tuples, tuples, lists
+and dataclass instances of tensors (params, caches, optimizer and train
+states), the roles ``jax.tree.map`` and ``jax.tree.leaves`` play in the JAX
+package (where ``TrainState`` is a registered dataclass).  ``None`` is an
+empty subtree, as in JAX."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List
+
+
+def _is_dataclass(tree) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -18,6 +24,10 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if _is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     return fn(tree, *rest)
 
 
@@ -29,6 +39,9 @@ def tree_leaves(tree) -> List[Any]:
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
+    if _is_dataclass(tree):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in tree_leaves(getattr(tree, f.name))]
     return [tree]
 
 

@@ -1529,3 +1529,32 @@ def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
     for g, w in zip(g_gpu, g_cpu):
         assert bool(((g - w).abs() <= 1e-4 * (1 + w.abs().max())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw8bit"])
+def test_dry_run_residency_equals_the_cards(cuda_device, optimizer):
+    """The dry run's bytes of a training state on a 1 x 1 mesh against what
+    the card allocates for it: llama3.2-3b at full width, 2 of 28 layers
+    (chip_smoke.py phase H (c) holds its 4-layer state the same way)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import train_state_bytes
+    from repro_torch.models import zoo
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train.state import TrainState
+    cfg = dataclasses.replace(get("llama3.2-3b"), num_layers=2, optimizer=optimizer)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    model = zoo.build(cfg, device=cuda_device)
+    params = model.init_params(model.generator(0))
+    state = TrainState(step=torch.zeros((), dtype=torch.int32, device=cuda_device),
+                       params=params,
+                       opt_state=make_optimizer(optimizer, constant(1e-3)).init(params))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda_device) - before
+    want = train_state_bytes(cfg, dict(kind="train", seq_len=1024, global_batch=2))
+    assert abs(held - want) <= 0.02 * want, (held, want)
+    del state, params
+    torch.cuda.empty_cache()
