@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the result lines):
      cms_update on a chunk whose tuples all carry one key (every tuple adds
      to the same 4 cells);
   3. drive the main path -- Ditto(spec, device="cuda") -> build (Eq. 2 on a
-     0.1% sample) -> run -- over the paper's 26 * 2^20 8-byte Zipf tuples in
+     0.1% sample) -> run -- over 3 * 2^22 8-byte Zipf tuples (the paper's
+     26 * 2^20 until the script's time limit cut them) in
      chunks of 4096 with M = 16 PriPEs: HISTO at alpha 0 and 3, HLL at
      alpha 3 (a ragged stream, +1000 tuples through chunk_masked) and HHD at
      alpha 3.  Merged buffers must equal the app's numpy oracle bit for
@@ -47,7 +48,7 @@ Phases (any failure exits non-zero before the result lines):
      first 256 chunks identical on card and CPU slot for slot, no PE kernel
      launched; then its card time per chunk as in phase 6;
   9. the replicated static-dispatch baseline (16 full replicas) over the
-     first 26 * 2^20 tuples of the alpha-3 HISTO, HLL and HHD streams: the
+     first 3 * 2^22 tuples of the alpha-3 HISTO, HLL and HHD streams: the
      aggregate equal to the flat oracle, the PE kernel once per chunk, and
      Table II's modeled ratios against phase 3's routed runs;
  10. Ditto.tune on the card for HISTO on a 2^22-tuple alpha-1.5 stream:
@@ -295,7 +296,7 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-N_TUPLES = 26 * 2**20          # the paper's 26 M tuples
+N_TUPLES = 3 * 2**22           # phases 3 and 9; the paper streams 26 * 2**20
 CHUNK = 4096
 RAGGED_EXTRA = 1000
 PARITY_CHUNKS = 256
@@ -317,7 +318,9 @@ STREAM_LANES, STREAM_X = 8, 14                # phase 11: max_streams, SecPEs
 # phases 11-14's sizes were halved to keep the script under 600 s beside
 # phases F and G (HHD's phase 12 (c) as it was), and again (phases 11, 12
 # (a), (b), 13, 14 (a) long stream and (c)) beside phase G's MoE and SSM
-# training; PERF.md §4 lists the cuts
+# training; phases 3 and 9's streams went from 26 * 2**20 tuples to
+# 3 * 2**22 (N_TUPLES) to keep it under 540 s (528 s on an H100; 2**24
+# took ~563 s with the kernels' build); PERF.md §4 lists the cuts
 STREAM_TUPLES, STREAM_SMALL = 2**19, 2**19    # a tenant of the online batch; of the others
 STREAM_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.0)
 PARITY_LANE_CHUNKS = 64
@@ -2351,6 +2354,7 @@ def mesh_session_path(dev) -> tuple[dict, int]:
 
 
 LM_KERNELS = ("onehot_dispatch", "onehot_combine", "flash_attention")
+LSE_TOL = 1e-4          # the flash forward's row log-sum-exp, rtol = atol
 
 
 def lm_counts() -> dict:
@@ -2372,6 +2376,39 @@ def reset_counts():
         kernel.launches = 0
 
 
+def check_flash_lse(q, k, v, causal: bool, window: int, cap: float, what: str) -> float:
+    """The flash forward's row log-sum-exp (``return_lse``, one more launch)
+    against a float64 logsumexp of the plain scores, rtol = atol = 1e-4 as in
+    tests/test_torch_cuda.py's LSE test, and +inf exactly where a row keeps
+    no key.  The bf16 output's 2e-2 would let a dropped or misplaced key
+    tile pass; this would not, at any shape.  Returns the finite rows' max
+    |err|."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    _, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                             return_lse=True)
+    kk = k.double().repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) * dh ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    i, j = torch.arange(sq, device=q.device)[:, None], torch.arange(sk, device=q.device)
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    want = torch.logsumexp(s.masked_fill(~keep, float("-inf")), dim=-1)
+    empty = ~keep.any(dim=-1)
+    assert bool(torch.isposinf(lse[:, :, empty]).all()), f"flash_attention lse {what}"
+    got, want = lse[:, :, ~empty].double(), want[:, :, ~empty]
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    assert bool((diff <= LSE_TOL * (1 + want.abs())).all()), \
+        f"flash_attention lse {what}: max |err| {err}"
+    return err
+
+
 def check_lm_kernels(dev) -> dict:
     """Phase A: the three LM kernels against their plain versions on the
     same CUDA tensors.  Pack/unpack must be bit-exact on unique cells (one
@@ -2379,7 +2416,8 @@ def check_lm_kernels(dev) -> dict:
     cells sum, the partial sums round in another order, so each cell's
     error is held to tol * (1 + the sum of |x| that went into it), tol 1e-5
     (float32) or 2e-2 (bfloat16).  Flash: rtol = atol = 1e-5 (float32) or
-    2e-2 (bfloat16), as in tests/test_kernels.py."""
+    2e-2 (bfloat16), as in tests/test_kernels.py, and its row log-sum-exp
+    to 1e-4 (check_flash_lse)."""
     from repro_torch.kernels import dispatch, ops, ref
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2434,6 +2472,8 @@ def check_lm_kernels(dev) -> dict:
             compare("flash_attention",
                     dispatch.flash_attention(q, k, v, causal=True, window=window),
                     ref.flash_attention(q, k, v, causal=True, window=window), tol)
+            lse_err = check_flash_lse(q, k, v, True, window, 0.0, f"{sl}/{kvh}/{dh}")
+            err["flash_attention_lse"] = max(err.get("flash_attention_lse", 0.0), lse_err)
     return err
 
 
@@ -2828,7 +2868,7 @@ def lm_kernel_times(dev, model, params, tokens, counts, max_err) -> list:
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "launches": counts["flash_attention"], "max_abs_err": max_err["flash_attention"],
         "ms": cuda_ms(fn, iters=50),
-        "device_ms": device_ms(fn, "flash_bf16_kernel", calls=50),
+        "device_ms": device_ms(fn, "flash_wgmma_kernel", calls=50),
         "ms_float32": cuda_ms(fn32, iters=10),
         "device_ms_float32": device_ms(fn32, "flash_kernel", calls=10),
         "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=10),
@@ -2891,8 +2931,9 @@ E_PARITY_LAYERS = {"deepseek-v2-lite-16b": 1}
 def check_flash_softcap(dev) -> dict:
     """Phase E (a): the soft-capped flash kernel (and MLA's head dim)
     against its plain version on CUDA tensors, bf16 and float32, one launch
-    each; rtol = atol = 1e-5 (float32) or 2e-2 (bfloat16), as phase A.  The
-    causal first row reads key 0 alone: its output must be v's row 0, which
+    each; rtol = atol = 1e-5 (float32) or 2e-2 (bfloat16), as phase A, and
+    the row log-sum-exp to 1e-4 (check_flash_lse).  The causal first row
+    reads key 0 alone: its output must be v's row 0, which
     a masked sentinel turned into -cap by the cap would spoil."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2915,6 +2956,8 @@ def check_flash_softcap(dev) -> dict:
                 err[key] = float(diff.max())
                 assert bool((diff <= tol * (1 + w.double().abs())).all()), \
                     f"flash_attention {key}: max |err| {err[key]}"
+            key = f"{name}_lse_{str(dtype).removeprefix('torch.')}"
+            err[key] = check_flash_lse(q, k, v, True, window, cap, key)
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return err
@@ -3257,7 +3300,8 @@ def flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, dtype, q_scale=1):
 def check_flash_whisper(dev) -> dict:
     """Phase F (a): the flash kernel at whisper's two shapes against its
     plain version, bf16 and float32, one launch each; rtol = atol = 1e-5
-    (float32) or 2e-2 (bfloat16), as phase A."""
+    (float32) or 2e-2 (bfloat16), as phase A, and the row log-sum-exp to
+    1e-4 (check_flash_lse)."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3275,6 +3319,8 @@ def check_flash_whisper(dev) -> dict:
             err[key] = float(diff.max())
             assert bool((diff <= tol * (1 + want.double().abs())).all()), \
                 f"flash_attention {key}: max |err| {err[key]}"
+            key = f"{name}_lse_{str(dtype).removeprefix('torch.')}"
+            err[key] = check_flash_lse(q, k, v, causal, 0, 0.0, key)
             del q, k, v, got, want, diff
     torch.cuda.empty_cache()
     return err
@@ -3723,7 +3769,7 @@ def step_profile(step, state, batch) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
     out = {"wall_ms_profiled": wall_ms, "device_ms": device_ms}
-    for key, names in (("flash_bwd", G_BWD_KERNELS), ("flash_fwd", ("flash_bf16_kernel",)),
+    for key, names in (("flash_bwd", G_BWD_KERNELS), ("flash_fwd", ("flash_wgmma_kernel",)),
                        ("moe", MOE_KERNELS)):
         ms = 1e-3 * sum(e.self_device_time_total for e in kernels
                         if any(n in e.key for n in names))

@@ -5,71 +5,100 @@
 // over the keys j that the masks keep: causal (j <= i), a sliding window
 // (j > i - window when window > 0) and key padding (j < Sk); h' = h / (H/KV)
 // (GQA by index, never materialised).  c is the soft-cap of gemma2's
-// attention, c(s) = cap * tanh(s / cap) (tanhf, the accurate libdevice
-// function), or the identity for cap = 0; the cap is a runtime argument.
-// It is applied to kept scores only: the masked sentinel stays the
-// sentinel (tanh(-inf) is -1, so a capped sentinel would keep its key).
-// The JAX model applies it outside its Pallas kernel, in sdpa_chunked and
-// sdpa_decode.  Replaces
-// src/repro/kernels/flash_attention.py::flash_attention, whose Pallas grid
-// walks the KV tiles as its last, sequential axis with (m, l, acc) resident
-// in VMEM.  Here one block owns one (b*h, q-tile) and loops over the KV
-// tiles itself, since blocks run in no order and carry nothing between them.
-// Masked probabilities are exactly 0, as in Pallas; KV tiles wholly above
-// the diagonal (causal) or wholly before the window are skipped, and the
-// epilogue writes acc / max(l, 1e-20).
+// attention, c(s) = cap * tanh(s / cap), or the identity for cap = 0; the
+// cap is a runtime argument.  It is applied to kept scores only: the masked
+// sentinel stays the sentinel (tanh(-inf) is -1, so a capped sentinel would
+// keep its key).  The JAX model applies it outside its Pallas kernel, in
+// sdpa_chunked and sdpa_decode.  Masked probabilities are exactly 0, as in
+// Pallas, and the epilogue writes acc / max(l, 1e-20), so a row with no
+// kept key gives 0.  Given a buffer, each row's float32 natural-log
+// log-sum-exp is written too (+inf for a row with no kept key): training
+// keeps it for flash_attention_bwd.cu; inference passes null.
 //
-// The entry routes by dtype: bfloat16 (the model's prefill) takes the
-// tensor-core kernel, float32 the CUDA-core kernel.  Either writes each
-// row's float32 log-sum-exp when given a buffer for it (training keeps it
-// for flash_attention_bwd.cu); inference passes null and skips the store.
-// The tensor-core helpers are shared with the backward in flash_common.cuh.
+// Replaces src/repro/kernels/flash_attention.py::flash_attention (its Pallas
+// kernel at :84, launched at :118), whose grid walks the KV tiles as its
+// last, sequential axis with (m, l, acc) resident in VMEM.  Here one CTA
+// owns one (b*h, q-tile) and loops over the KV tiles itself, since CTAs run
+// in no order and carry nothing between them.  KV tiles wholly above the
+// diagonal (causal) or wholly before the window are skipped.
 //
-// bfloat16, tensor cores (namespace tc).  Bound: operations.  At the
-// prefill shape (B=4, S=1024, H=16, dh=128, causal) QK^T and PV are 17.2
-// GFLOP against 67 MB moved: 0.017 ms at 989 TFLOP/s, 0.020 ms at 3.35 TB/s.
-// The float32 kernel below reads every element with one 2-byte load and a
-// conversion and runs FMAs at 67 TFLOP/s peak; this one keeps the data in
-// bf16 and feeds mma.sync:
-//   - a block of 4 warps owns 128 query rows of one (b, h): 2 m-tiles of
-//     16 rows a warp, so each K and V fragment read from shared memory feeds
-//     two mma (dh 256: one m-tile, for the registers).  The grid launches the
-//     heavy causal q-tiles first (reversed blockIdx.y) so the short diagonal
-//     tiles fill the tail;
-//   - Q, K and V move by cp.async in 16-byte pieces into shared memory laid
-//     out with an XOR swizzle of the 16-byte chunks (chunk ^ row % 8), so
-//     ldmatrix reads 8 rows of one chunk column without bank conflicts;
-//     each lane keeps four swizzled column offsets and the rest of every
-//     ldmatrix address is compile-time.  K and V tiles of 64 keys stream
-//     through a 2-stage ring (commit_group / wait_group), loading tile j+1
-//     while tile j computes; Q is read by ldmatrix each tile;
-//   - S = Q K^T by mma.sync.m16n8k16 (bf16 in, float32 accumulate), K
-//     fragments by ldmatrix; the online softmax runs in registers: a thread
-//     holds 2 rows of each m-tile, row max and row sum reduce over the quad
-//     with two xor shuffles, dh^-0.5 * log2(e) folds into one FMA before the
-//     SFU's ex2, and masks are applied only on tiles that straddle an edge.
-//     With a cap the scale cannot stay folded (tanh is not linear): each
-//     kept score becomes cap * tanhf(s * dh^-0.5 / cap) first, and log2(e)
-//     alone goes into the FMA.  Whether to cap is a template flag, picked
-//     at launch from the runtime cap, so that cap 0 runs the uncapped code
-//     and arithmetic bit for bit; the cap's value stays an argument.  The
-//     mask test stays inside the edge-tile branch: a per-score "kept" flag
-//     evaluated on every tile made the uncapped kernel 10-20% slower.
-//     Masked scores are -inf, so their probabilities are exactly 0, and a
-//     row with no kept key yet is taken against 0 in place of its -inf max;
-//   - O += P V with P packed to bf16 A fragments straight from the score
-//     registers and V loaded by ldmatrix.trans;
-//   - the epilogue divides in float32, rounds to bf16 and stages the tile
-//     in shared memory so each store is 16 bytes and coalesced.
-// Measured on an H100 (PERF.md), this layout beat 8 warps a block
-// and 1 m-tile a warp with Q held in registers as A fragments for the whole
-// KV loop.  dh is zero-padded in shared memory to the template's 64, 128 or
-// 256.  Where dh is not a multiple of 8 or a pointer is not 16-byte aligned,
-// the same kernel loads and stores element by element.
-// Numerics: a product of two bf16 values is exact in float32 and QK^T, m,
-// l and O accumulate in float32; P is rounded to bf16 before PV, the one
-// departure from the Pallas kernel's float32 math (within the bf16
-// tolerance, rtol = atol = 2e-2, that the tests hold it to).
+// Two kernels, by dtype: bfloat16 on wgmma (namespace sm90; head-dim
+// templates 64, 128, 192, 256), float32 on the CUDA cores, the parity path
+// (namespace f32; 64, 128, 256).  The entry picks the smallest template that
+// holds dh.  The bf16 kernel reads its tensors by TMA, which needs 16-byte
+// aligned bases and strides: the Python wrapper (kernels/flash_attention.py,
+// tma_operands) zero-pads dh to a multiple of 8 and copies a misaligned
+// tensor before the call, so every bf16 input takes this one kernel.
+//
+// Bound (chip_smoke.flash_bound: q, k, v read and out written once; QK^T and
+// PV 4 dh operations a kept pair at 989 TFLOP/s, a cap 3 more at the CUDA
+// cores' 67 TFLOP/s): moonshot's prefill [4, 1024, 16/16, 128] causal moves
+// 67 MB, 0.0200 ms at 3.35 TB/s, against 17.2 GFLOP, 0.0174 ms; MLA's
+// [4, 1024, 16/16, 192] 101 MB, 0.0300 ms (bytes); gemma2's [4, 1024, 8/4,
+// 256] 0.0181 ms with the cap, Jamba's [1, 1024, 64/8, 128] 0.0174, phi-3's
+// [1, 2048, 32/32, 96] 0.0261, whisper's encoder [4, 1500, 8/8, 64]
+// non-causal 0.0186 and cross [4, 448 -> 1500] 0.0056 ms (operations).
+//
+// bfloat16 on wgmma (namespace sm90), after FlashAttention-3 (Shah et al.,
+// 2024).  A CTA is a producer warpgroup and kConsumers consumer warpgroups
+// of 64 query rows of one (b, h): three (192 rows) at dh 64 and 128, two
+// (128 rows) at 192 and 256.
+//   - The producer's first thread loads the Q tile once and streams K and
+//     V tiles of kBK keys through a 2-stage ring by TMA (cp.async.bulk.tensor
+//     over the [B, S, heads, dh] tensors as they are, 64-column boxes with
+//     the 128-byte swizzle that wgmma's descriptors read), with a full
+//     mbarrier for each K and V tile (its bytes landed) and an empty one a
+//     stage (every consumer warp is done with it).  TMA's zero fill stands
+//     in for guarded loads past Sk, Sq and dh (dh 96 runs in the 128
+//     template without reading columns 96-127).  A CTA that keeps no key
+//     tile loads nothing, so no copy can land after it exits.  The tensor
+//     maps are built on the host for each call (cuTensorMapEncodeTiled
+//     through cudaGetDriverEntryPoint, so the library needs no -lcuda),
+//     passed as __grid_constant__ parameters and prefetched at the start.
+//   - setmaxnreg leaves the producer 24 registers a thread and gives each
+//     consumer 160 (three) or 240 (two).  In a consumer, S = Q K^T is an
+//     SS-wgmma m64nBKk16 (Q and K K-major from shared memory); the online
+//     softmax runs in the accumulator registers as wgmma lays them out (a
+//     thread holds 2 rows of its warp's 16; row max and row sum reduce over
+//     the quad with two xor shuffles; dh^-0.5 * log2(e) folds into one FMA
+//     before ex2.approx; masks are tested only on tiles that straddle the
+//     diagonal, the window's start, Sq or Sk; a row with no kept key yet is
+//     taken against 0 in place of its -inf max); O += P V is an RS-wgmma
+//     m64nDk16 with P packed to bf16 A fragments straight from the score
+//     registers and V read N-major through the transpose bit.  Then each
+//     warp arrives on the stage's empty barrier.  A consumer whose rows
+//     keep no key of a tile waits for its bytes and skips it.
+//   - The cap without tanhf: tanh(y) = 1 - 2 / (2^(2y log2 e) + 1) by
+//     ex2.approx and rcp.approx, about 1e-6 absolute (tanh.approx.f32's
+//     ~2^-11, times a cap of 50, would move a logit by up to ~0.025); the
+//     backward recomputes c(S) with tanhf from this kernel's LSE, so the two
+//     must agree that closely.  Whether to cap is a template flag, picked at
+//     launch from the runtime cap; the cap's value stays an argument.
+//   - The epilogue divides in float32, rounds to bf16 into the consumer's
+//     own rows of the Q tile and writes them with one TMA store a 64-column
+//     block, which drops the rows past Sq and the columns past dh.
+//   - Q-tiles end at Sq rounded up to 64 rows, so the partial one is the
+//     lightest causal tile, and the heavy ones launch first.
+// Tiles: dh 64: 192 rows, 128 keys (89 KB of shared memory); 128: 192 rows,
+// 64 keys (113 KB); 192: 128 rows, 96 keys (193 KB); 256: 128 rows, 64 keys
+// (193 KB).  ptxas (sm_90a, CUDA 12.9, capped and not): 128 registers a
+// thread at launch for the three-consumer kernels, 168 for the two, no
+// spills, no serialised wgmma.
+// Measured on an H100 in turns (tools/kernel_turns.py; PERF.md §6 row 5)
+// and dropped, as ms at moonshot's prefill shape against the kept design
+// of the time: FlashAttention-3's intra-warpgroup overlap (tile n's QK^T
+// issued before tile n - 1's PV, the softmax under the PV) 0.0716 against
+// 0.0690 (whisper's encoder 0.1024 against 0.0706); with ping-pong named
+// barriers between the two consumers on top 0.0687, but 0.1055 at whisper's
+// encoder; ping-pong in the kept loop, freeing K and V of a stage apart
+// (mid-loop arrivals), and 64-key tiles with a 4-stage ring at every dh
+// each made ptxas serialise the wgmma (C7520): 0.0964, 0.0754, 0.0859; a
+// 3-stage ring at dh 64 and 128 0.0693 against 0.0689 (whisper's encoder
+// 0.0956 against 0.0714); three consumers with 128-key tiles at dh 128
+// 0.0725 (too few registers: serialised).  Kept, each ahead in turns:
+// three consumers at dh 64 and 128 (moonshot 0.0590 against 0.0685,
+// whisper's encoder 0.0625 against 0.0720), the tensor-map prefetch (even:
+// 0.0687 against 0.0689), q-tiles ending at Sq (0.0572 against 0.0588).
 //
 // float32, CUDA cores (namespace f32).  256 threads as a 16 x 16 grid; a
 // 64 x 64 (q, k) tile.  Q, K and V tiles are staged in shared memory as
@@ -81,6 +110,7 @@
 // and then capped (cap > 0), a masked one is -1e30, as in Pallas.
 #include "flash_common.cuh"
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -89,172 +119,175 @@
 
 namespace {
 
-namespace tc {
+namespace sm90 {
 
 using namespace flash_common;
-constexpr int kWarps = 4;      // a block
-constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 64;        // keys a tile
-constexpr int kStages = 2;     // K/V ring depth
+constexpr int kProducerRegs = 24;                // setmaxnreg: the producer's
 
-// Two 16-row m-tiles a warp, so each K and V fragment feeds two mma; one
-// at dh 256, where the accumulators of two would not fit in registers.
+// The CTA at head dim D: kConsumers warpgroups of 64 query rows beside the
+// producer warpgroup, keys a tile (kBK) and the K/V ring's depth, so that
+// Q [kBQ][D] and the ring fit in 227 KB and a consumer's S [64][kBK] and
+// O [64][D] accumulators fit in its kConsumerRegs registers (setmaxnreg:
+// 128 x 24 + 384 x 160 or 256 x 240 = 64,512 of the SM's 65,536).  With
+// three consumers (dh <= 128) each K/V tile a CTA loads serves 192 query
+// rows, not 128; at dh 128 only with 64-key tiles, as S [64][128] and O
+// did not fit in 160 registers (ptxas serialised the wgmma).
 template <int D>
-struct Layout {
-  static constexpr int kMT = D <= 128 ? 2 : 1;
-  static constexpr int kBQ = kWarps * 16 * kMT;   // query rows a block
-  static constexpr int kSmem =
-      (kBQ + 2 * kStages * kBK) * D * static_cast<int>(sizeof(bf16));
+struct Tiles {
+  static constexpr int kConsumers = D <= 128 ? 3 : 2;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBQ = 64 * kConsumers;    // query rows a CTA
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kBK = D == 64 ? 128 : D == 192 ? 96 : 64;
+  static constexpr int kStages = 2;
+  static constexpr int kQ = kBQ * D;             // elements of the Q tile
+  static constexpr int kKV = kBK * D;            // elements of one K or V tile
+  static constexpr int kBars = 1 + 3 * kStages;  // Q full; K full, V full, empty
+  static constexpr int kSmem =                   // + 1024 to align the tiles
+      (kQ + 2 * kStages * kKV) * static_cast<int>(sizeof(bf16)) + 8 * kBars + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a CTA");
 };
 
+// out = softmax(c(Q K^T dh^-0.5)) V for kBQ query rows of one (b, h): the
+// producer warpgroup's first thread loads Q once and K and V tiles through
+// the ring by TMA; each consumer warpgroup owns 64 of the rows.
 template <int D, bool kCapped>
-__global__ void __launch_bounds__(kThreads)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int sq,
-                  int sk, int heads, int kv_heads, int dh, float score_log2,
-                  float cap_in, float cap, int causal, int window, int vec) {
+__global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ lse, int sq, int sk, int heads, int kv_heads,
+                   float score_log2, float cap_in, int causal, int window) {
   // score_log2 takes a score as the softmax sees it into log2 units:
-  // dh^-0.5 * log2(e) uncapped, log2(e) after the cap, whose input is the
-  // raw score times cap_in = dh^-0.5 / cap
-  using L = Layout<D>;
-  constexpr int kMT = L::kMT;
-  constexpr int kRows = 16 * kMT;       // query rows a warp
-  constexpr int kBQ = L::kBQ;
-  constexpr int kChunks = D / 8;        // 16-byte chunks a row; O's n-tiles
-  constexpr int kSteps = D / 16;        // k-steps of QK^T
-  constexpr int kKeyTiles = kBK / 8;    // n-tiles of S
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][D]; O in the epilogue
-  bf16* ks = qs + kBQ * D;                        // [kStages][kBK][D]
-  bf16* vs = ks + kStages * kBK * D;              // [kStages][kBK][D]
+  // dh^-0.5 * log2(e) on the raw score uncapped, cap * log2(e) on
+  // tanh(raw * dh^-0.5 / cap) capped; cap_in = 2 * log2(e) * dh^-0.5 / cap
+  using T = Tiles<D>;
+  constexpr int kBK = T::kBK, kStages = T::kStages, kBQ = T::kBQ;
+  constexpr int kNT = kBK / 8;                   // n-tiles of S
+  constexpr int kBlocks = D / 64;                // 64-column blocks of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(smem);      // [kBlocks][kBQ][64]; O at the end
+  bf16* ks = qs + T::kQ;                         // [kStages][kBlocks][kBK][64]
+  bf16* vs = ks + kStages * T::kKV;              // [kStages][kBlocks][kBK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * T::kKV);
+  uint64_t* k_full = q_full + 1;                 // [kStages]
+  uint64_t* v_full = k_full + kStages;           // [kStages]
+  uint64_t* empty = v_full + kStages;            // [kStages]: both consumers done
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;       // the thread's rows: g and g + 8 of each m-tile
-  const int tq = lane & 3;       // its pair of columns within each n-tile
-  const int mi = lane >> 3;      // the ldmatrix matrix this lane addresses
-  const int mr = lane & 7;       // ... and its row there, mod 8
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int kh = h / (heads / kv_heads);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int wr0 = warp * kRows;  // the warp's first row in the block's tile
-  const int wq0 = q0 + wr0;
-  const long long q_stride = static_cast<long long>(heads) * dh;
-  const long long kv_stride = static_cast<long long>(kv_heads) * dh;
-  const bf16* qb = q + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(h) * dh;
-  const bf16* kb = k + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(kh) * dh;
-  const bf16* vb = v + static_cast<long long>(b) * sk * kv_stride + static_cast<long long>(kh) * dh;
-  bf16* ob = o + static_cast<long long>(b) * sq * q_stride + static_cast<long long>(h) * dh;
-
-  // ldmatrix addressing.  Q (A, rows l % 16 of an m-tile, chunks 2kk + l / 16)
-  // and K (B of Q K^T, keys 8j + mr + 8 (mi / 2), chunks 2kk + mi % 2): chunk
-  // 2kk + b = 8 (kk / 4) + 2 (kk % 4) + b.  V (B of P V through .trans,
-  // keys 16kk + mr + 8 (mi % 2), chunks j + mi / 2 for even j).
-  int qoff[4], koff[4], voff[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qoff[i] = chunk_off(2 * i + (lane >> 4), mr);
-    koff[i] = chunk_off(2 * i + (mi & 1), mr);
-    voff[i] = chunk_off(2 * i + (mi >> 1), mr);
-  }
-  const int qrow = (wr0 + (lane & 15)) * D;
-  const int krow = (mr + 8 * (mi >> 1)) * D;
-  const int vrow = (mr + 8 * (mi & 1)) * D;
-
+  // q-tiles end at Sq rounded up to 64 rows, so the partial tile is the
+  // first, the lightest causal one, and the heavy ones launch first.  The
+  // first may start before row 0: TMA reads those rows as 0, and a
+  // consumer whose 64 rows all lie there computes and stores nothing (a
+  // consumer's rows that straddled row 0 made its TMA store fault)
+  const int q0 = (sq + 63) / 64 * 64 - (static_cast<int>(blockIdx.y) + 1) * kBQ;
+  // the key tiles [kv_begin, kv_end) that some row of the CTA keeps
   const int q_last = min(q0 + kBQ, sq) - 1;
   int kv_end = (sk + kBK - 1) / kBK;
   if (causal) kv_end = min(kv_end, q_last / kBK + 1);
   int kv_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kv_begin = (q0 - window + 1) / kBK;
+  const int tiles = max(kv_end - kv_begin, 0);
 
-  load_tile<D, kBQ, kThreads>(qs, qb, q_stride, q0, sq, dh, vec);
-  cp_commit();
-  if (kv_begin < kv_end) {
-    load_tile<D, kBK, kThreads>(ks, kb, kv_stride, kv_begin * kBK, sk, dh, vec);
-    load_tile<D, kBK, kThreads>(vs, vb, kv_stride, kv_begin * kBK, sk, dh, vec);
+  if (threadIdx.x == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    prefetch_tensormap(&to);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4 * T::kConsumers);   // one arrival a consumer warp
+    }
+    fence_barrier_init();
   }
-  cp_commit();
-  cp_wait<1>();       // Q has landed (the first tile may still be in flight)
   __syncthreads();
 
-  float acc[kMT][kChunks][4];
-  float m[kMT][2], l[kMT][2];         // m in log2 units; l: this thread's share
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j)
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
-    m[mt][0] = m[mt][1] = kMasked;
-    l[mt][0] = l[mt][1] = 0.0f;
-  }
-
-  for (int tile = kv_begin, it = 0; tile < kv_end; ++tile, ++it) {
-    // prefetch the next tile into the stage the previous tile freed
-    if (tile + 1 < kv_end) {
-      const int ns = (it + 1) % kStages;
-      load_tile<D, kBK, kThreads>(ks + ns * kBK * D, kb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
-      load_tile<D, kBK, kThreads>(vs + ns * kBK * D, vb, kv_stride, (tile + 1) * kBK, sk, dh, vec);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-
-    const int k0 = tile * kBK;
-    const bf16* kt = ks + (it % kStages) * kBK * D + krow;
-    const bf16* vt = vs + (it % kStages) * kBK * D + vrow;
-    // a warp whose rows keep no key of this tile only waits at the barriers
-    const bool live = !(causal && k0 > wq0 + kRows - 1) &&
-                      !(window > 0 && k0 + kBK - 1 <= wq0 - window);
-    if (live) {
-      float s[kMT][kKeyTiles][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j)
-          s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t a[kMT][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          ldsm_x4(a[mt], qs + qrow + 16 * mt * D + ((kk >> 2) << 6) + qoff[kk & 3]);
-#pragma unroll
-        for (int j = 0; j < kKeyTiles; j += 2) {
-          uint32_t bk[4];
-          ldsm_x4(bk, kt + 8 * j * D + ((kk >> 2) << 6) + koff[kk & 3]);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            mma(s[mt][j], a[mt], bk[0], bk[1]);
-            mma(s[mt][j + 1], a[mt], bk[2], bk[3]);
-          }
-        }
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer.  A CTA with no key tile loads nothing, not even Q, so no
+    // copy can land after its consumers have left.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && tiles > 0) {
+      mbar_expect_tx(q_full, T::kQ * sizeof(bf16));
+      for (int c = 0; c < kBlocks; ++c)
+        tma_load_4d(qs + c * kBQ * 64, &tq, q_full, 64 * c, h, q0, b);
+      for (int n = 0; n < tiles; ++n) {
+        const int st = n % kStages;
+        if (n >= kStages) mbar_wait(&empty[st], ((n / kStages) - 1) & 1);
+        const int k0 = (kv_begin + n) * kBK;
+        mbar_expect_tx(&k_full[st], T::kKV * sizeof(bf16));
+        for (int c = 0; c < kBlocks; ++c)
+          tma_load_4d(ks + st * T::kKV + c * kBK * 64, &tk, &k_full[st], 64 * c, kh, k0, b);
+        mbar_expect_tx(&v_full[st], T::kKV * sizeof(bf16));
+        for (int c = 0; c < kBlocks; ++c)
+          tma_load_4d(vs + st * T::kKV + c * kBK * 64, &tv, &v_full[st], 64 * c, kh, k0, b);
       }
+    }
+  } else {
+    // Consumer warpgroup cw: rows wq0 + [0, 64), warp w of it rows
+    // row0 + [0, 16), as wgmma's accumulators lie.
+    setmaxnreg_inc<T::kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;       // the thread's rows: g and g + 8 of the warp's 16
+    const int tq = lane & 3;       // its pair of columns within each n-tile
+    const int wq0 = q0 + 64 * cw;
+    const int row0 = wq0 + 16 * warp;
+    // the tiles of the ring this warpgroup computes; it waits on the rest
+    const bool rows = wq0 >= 0;
+    int my_end = kv_end, my_begin = kv_begin;
+    if (causal) my_end = min(my_end, min(wq0 + 63, sq - 1) / kBK + 1);
+    if (window > 0 && wq0 - window + 1 > 0) my_begin = max(my_begin, (wq0 - window + 1) / kBK);
+    const bf16* qw = qs + cw * 64 * 64;
 
-      // masks only where the tile straddles an edge of some row's range
-      const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > wq0) ||
-                        (window > 0 && k0 <= wq0 + kRows - 1 - window);
+    float acc[D / 8][4];
+    float m[2], l[2];              // m in log2 units; l: this thread's share
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    m[0] = m[1] = kMasked;
+    l[0] = l[1] = 0.0f;
+
+    if (tiles > 0) mbar_wait(q_full, 0);
+    for (int n = 0; n < tiles; ++n) {
+      const int st = n % kStages;
+      const uint32_t parity = (n / kStages) & 1;
+      const int tile = kv_begin + n;
+      const int k0 = tile * kBK;
+      mbar_wait(&k_full[st], parity);
+      if (rows && tile >= my_begin && tile < my_end) {
+        float s[kNT][4];
+        wgmma_fence();
+        scores_wg<D, kBQ, kBK>(s, qw, ks + st * T::kKV);
+        wgmma_commit();
+        wgmma_wait();
+        fence_acc<kNT>(s);
+
+        // masks only where the tile straddles an edge of one of the warp's rows
+        const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > row0) ||
+                          (window > 0 && k0 <= row0 + 15 - window);
         float mx[2] = {kMasked, kMasked};
 #pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
+        for (int j = 0; j < kNT; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            // the cap touches kept scores only
+            // the cap touches kept scores only: tanh(y) = 1 - 2 / (2^(2y log2 e) + 1)
             if (edge) {
-              const int qp = wq0 + 16 * mt + g + 8 * (e >> 1);
+              const int qp = row0 + g + 8 * (e >> 1);
               const int kp = k0 + 8 * j + 2 * tq + (e & 1);
               if (!(kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window)))
-                s[mt][j][e] = kMasked;
+                s[j][e] = kMasked;
               else if (kCapped)
-                s[mt][j][e] = cap * tanhf(s[mt][j][e] * cap_in);
+                s[j][e] = 1.0f - 2.0f * rcp_approx(exp2_approx(s[j][e] * cap_in) + 1.0f);
             } else if (kCapped) {
-              s[mt][j][e] = cap * tanhf(s[mt][j][e] * cap_in);
+              s[j][e] = 1.0f - 2.0f * rcp_approx(exp2_approx(s[j][e] * cap_in) + 1.0f);
             }
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
           }
         }
         // a row with no kept key yet has m = -inf and is taken against 0,
@@ -264,114 +297,138 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float m_new = fmaxf(m[mt][r], mx[r] * score_log2);
+          const float m_new = fmaxf(m[r], mx[r] * score_log2);
           base_m[r] = m_new == kMasked ? 0.0f : m_new;
-          const float alpha = exp2_approx(m[mt][r] - base_m[r]);
-          m[mt][r] = m_new;
-          l[mt][r] *= alpha;
+          const float alpha = exp2_approx(m[r] - base_m[r]);
+          m[r] = m_new;
+          l[r] *= alpha;
 #pragma unroll
-          for (int j = 0; j < kChunks; ++j) {
-            acc[mt][j][2 * r] *= alpha;
-            acc[mt][j][2 * r + 1] *= alpha;
+          for (int j = 0; j < D / 8; ++j) {
+            acc[j][2 * r] *= alpha;
+            acc[j][2 * r + 1] *= alpha;
           }
         }
 #pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
+        for (int j = 0; j < kNT; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float p = exp2_approx(fmaf(s[mt][j][e], score_log2, -base_m[e >> 1]));
-            s[mt][j][e] = p;
-            l[mt][e >> 1] += p;
+            const float p = exp2_approx(fmaf(s[j][e], score_log2, -base_m[e >> 1]));
+            s[j][e] = p;
+            l[e >> 1] += p;
           }
         }
-      }
 
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        // P's A fragment for keys 16kk..+15 is S's n-tiles 2kk and 2kk+1
-        uint32_t a[kMT][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) c_to_a(a[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
-#pragma unroll
-        for (int j = 0; j < kChunks; j += 2) {
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, vt + 16 * kk * D + ((j >> 3) << 6) + voff[(j & 7) >> 1]);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            mma(acc[mt][j], a[mt], bv[0], bv[1]);
-            mma(acc[mt][j + 1], a[mt], bv[2], bv[3]);
-          }
-        }
+        // O += P V: P from the score registers, rounded to bf16
+        mbar_wait(&v_full[st], parity);
+        wgmma_fence();
+        accumulate_wg<D, kBK>(acc, s, vs + st * T::kKV);
+        wgmma_commit();
+        wgmma_wait();
+        fence_acc<D / 8>(acc);
+      } else {
+        mbar_wait(&v_full[st], parity);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
 
-  // epilogue: O / max(l, 1e-20) in float32, rounded to bf16, staged in the
-  // warp's own rows of qs, then written out 16 bytes at a time
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+    // epilogue: O / max(l, 1e-20) in float32, rounded to bf16, into the
+    // warpgroup's own rows of the Q tile (their last reader, this
+    // warpgroup's QK^T, is done), then one TMA store a 64-column block,
+    // which clips the rows past Sq and the columns past dh
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float sum = l[mt][r];
+      float sum = l[r];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       inv[r] = 1.0f / fmaxf(sum, 1e-20f);
       // the row's log-sum-exp of the scores as the softmax takes them, in
       // natural units (m is in log2 units); +inf for a row with no kept key
-      const int lrow = wq0 + 16 * mt + g + 8 * r;
-      if (lse != nullptr && tq == 0 && lrow < sq)
+      const int lrow = row0 + g + 8 * r;
+      if (lse != nullptr && tq == 0 && lrow >= 0 && lrow < sq)
         lse[static_cast<long long>(bh) * sq + lrow] =
-            sum > 0.0f ? (m[mt][r] + log2f(sum)) * kLn2 : INFINITY;
+            sum > 0.0f ? (m[r] + log2f(sum)) * kLn2 : INFINITY;
     }
-    const int row = wr0 + 16 * mt + g;
+    const int rr = 64 * cw + 16 * warp + g;    // the thread's first row in the tile
 #pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      *reinterpret_cast<uint32_t*>(qs + swz<D>(row, j) + 2 * tq) =
-          pack_bf16(acc[mt][j][0] * inv[0], acc[mt][j][1] * inv[0]);
-      *reinterpret_cast<uint32_t*>(qs + swz<D>(row + 8, j) + 2 * tq) =
-          pack_bf16(acc[mt][j][2] * inv[1], acc[mt][j][3] * inv[1]);
+    for (int j = 0; j < D / 8; ++j) {
+      bf16* blk = qs + (j >> 3) * kBQ * 64 + 2 * tq;
+      const int sw = ((j & 7) ^ (rr & 7)) << 3;   // rows rr and rr + 8 share it
+      *reinterpret_cast<uint32_t*>(blk + rr * 64 + sw) =
+          pack_bf16(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(blk + (rr + 8) * 64 + sw) =
+          pack_bf16(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+    }
+    fence_proxy_async();           // the generic writes before TMA reads them
+    named_sync(1 + cw, 128);
+    if ((threadIdx.x & 127) == 0 && rows) {
+      for (int c = 0; c < kBlocks; ++c)
+        tma_store_4d(&to, qs + c * kBQ * 64 + cw * 64 * 64, 64 * c, h, wq0, b);
+      tma_store_wait();
     }
   }
-  __syncwarp();
-  if (vec) {
-#pragma unroll
-    for (int i = lane; i < kRows * kChunks; i += 32) {
-      const int r = i / kChunks;
-      const int c = i % kChunks;
-      if (wq0 + r < sq && c * 8 < dh)
-        *reinterpret_cast<int4*>(ob + (wq0 + r) * q_stride + c * 8) =
-            *reinterpret_cast<const int4*>(qs + swz<D>(wr0 + r, c));
-    }
-  } else {
-    for (int i = lane; i < kRows * D; i += 32) {
-      const int r = i / D;
-      const int c = i % D;
-      if (wq0 + r < sq && c < dh)
-        ob[(wq0 + r) * q_stride + c] = qs[swz<D>(wr0 + r, c >> 3) + (c & 7)];
-    }
-  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The CUDA driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 [b, s, heads, dh] tensor as it is,
+// boxes of 64 columns x 1 head x `rows` positions x 1 batch, 128-byte
+// swizzle; reads past s or dh give 0, stores there are dropped.
+bool tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads, int dh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t n = static_cast<cuuint64_t>(s > 0 ? s : 1);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads), n,
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(dh) * sizeof(bf16);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * n};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 template <int D, bool kCapped>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                    int sq, int sk, int heads, int kv_heads, int dh, float scale,
                    int causal, int window, float cap, cudaStream_t stream) {
-  using L = Layout<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D, kCapped>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::kSmem);
+  using T = Tiles<D>;
+  CUtensorMap mq, mk, mv, mo;
+  // with no key (sk = 0) nothing is loaded: K's and V's maps lie over q
+  if (!tensor_map(&mq, q, b, sq, heads, dh, T::kBQ) ||
+      !tensor_map(&mk, sk > 0 ? k : q, b, sk, kv_heads, dh, T::kBK) ||
+      !tensor_map(&mv, sk > 0 ? v : q, b, sk, kv_heads, dh, T::kBK) ||
+      !tensor_map(&mo, o, b, sq, heads, dh, 64))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_kernel<D, kCapped>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  const int vec = dh % 8 == 0 && any % 16 == 0;
-  const dim3 grid(b * heads, (sq + L::kBQ - 1) / L::kBQ);
-  flash_bf16_kernel<D, kCapped><<<grid, kThreads, L::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, sq, sk, heads, kv_heads, dh,
-      kCapped ? kLog2e : scale * kLog2e,
-      kCapped ? scale / cap : 0.0f, cap, causal, window, vec);
+  const dim3 grid(b * heads, (sq + T::kBQ - 1) / T::kBQ);
+  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
+      mq, mk, mv, mo, lse, sq, sk, heads, kv_heads,
+      kCapped ? cap * kLog2e : scale * kLog2e, kCapped ? 2.0f * kLog2e * scale / cap : 0.0f,
+      causal, window);
   return cudaGetLastError();
 }
 
@@ -386,20 +443,7 @@ cudaError_t launch_cap(const void* q, const void* k, const void* v, void* o, flo
                           window, cap, stream);
 }
 
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                      int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                      int causal, int window, float cap, cudaStream_t stream) {
-  if (dh <= 64)
-    return launch_cap<64>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                          window, cap, stream);
-  if (dh <= 128)
-    return launch_cap<128>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                           window, cap, stream);
-  return launch_cap<256>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                         window, cap, stream);
-}
-
-}  // namespace tc
+}  // namespace sm90
 
 namespace f32 {
 
@@ -589,41 +633,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                      int sq, int sk, int heads, int kv_heads, int dh, float scale,
-                      int causal, int window, float cap, cudaStream_t stream) {
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                         window, cap, stream);
-  if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                          window, cap, stream);
-  return launch<T, 256>(q, k, v, o, lse, b, sq, sk, heads, kv_heads, dh, scale, causal,
-                        window, cap, stream);
-}
-
 }  // namespace f32
 
 }  // namespace
 
-// q, o: [b, sq, heads, dh]; k, v: [b, sk, kv_heads, dh], all contiguous, of
-// float32 (is_bf16 = 0: CUDA cores) or bfloat16 (is_bf16 = 1: tensor
-// cores); dh <= 256; heads a multiple of kv_heads; window <= 0 means none;
-// softcap <= 0 means none.  lse, if not null, receives each row's float32
-// log-sum-exp [b, heads, sq] for the backward (flash_attention_bwd.cu).
-// Returns the CUDA error.
+// q, o: [b, sq, heads, dh]; k, v: [b, sk, kv_heads, dh], all contiguous,
+// all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1: dh % 8 == 0 and
+// every pointer 16-byte aligned, as TMA needs); dh <= 256; heads a multiple
+// of kv_heads; scale the scores' factor (dh^-0.5 of the true head dim when
+// the caller padded dh); window <= 0 means none; softcap <= 0 means none.
+// lse, if not null, receives each row's float32 log-sum-exp [b, heads, sq]
+// for the backward (flash_attention_bwd.cu).  Returns the CUDA error
+// (cudaErrorInvalidValue for a dh it has no template for, or a tensor map
+// the CUDA driver refuses).
 extern "C" int flash_attention(void* o, void* lse, const void* q, const void* k, const void* v,
                                int b, int sq, int sk, int heads, int kv_heads,
                                int dh, float scale, int causal, int window,
                                float softcap, int is_bf16, void* stream) {
   if (b <= 0 || sq <= 0 || heads <= 0) return 0;
+  if (dh <= 0 || dh > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_out = static_cast<float*>(lse);
-  cudaError_t err =
-      is_bf16 ? tc::launch_dh(q, k, v, o, lse_out, b, sq, sk, heads, kv_heads, dh, scale,
-                              causal, window, softcap, s)
-              : f32::launch_dh<float>(q, k, v, o, lse_out, b, sq, sk, heads, kv_heads, dh,
-                                      scale, causal, window, softcap, s);
+  cudaError_t err;
+#define FLASH_ARGS q, k, v, o, lse_out, b, sq, sk, heads, kv_heads, dh, scale, causal, window, \
+                   softcap, s
+  if (is_bf16)
+    err = dh <= 64    ? sm90::launch_cap<64>(FLASH_ARGS)
+          : dh <= 128 ? sm90::launch_cap<128>(FLASH_ARGS)
+          : dh <= 192 ? sm90::launch_cap<192>(FLASH_ARGS)
+                      : sm90::launch_cap<256>(FLASH_ARGS);
+  else
+    err = dh <= 64    ? f32::launch<float, 64>(FLASH_ARGS)
+          : dh <= 128 ? f32::launch<float, 128>(FLASH_ARGS)
+                      : f32::launch<float, 256>(FLASH_ARGS);
+#undef FLASH_ARGS
   return static_cast<int>(err);
 }

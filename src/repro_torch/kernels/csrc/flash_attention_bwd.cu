@@ -287,173 +287,6 @@ struct Lanes {
   }
 };
 
-// wgmma (sm_90a).  A shared-memory matrix descriptor of a blocked tile at
-// p: 128-byte swizzle, 8-row groups 1024 bytes apart (SBO), the leading
-// offset unused (K-major).  Advancing p by 16 elements steps k by 16
-// inside a 128-byte row, as the swizzle is applied to the whole address.
-__device__ __forceinline__ uint64_t gmma_desc(const bf16* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins an accumulator's registers at this point of the program: the
-// compiler may not move their reads across an asynchronous product's wait.
-template <int kNT>
-__device__ __forceinline__ void fence_acc(float (*d)[4]) {
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
-}
-
-// d[64 x N] (a warpgroup's C fragments: warp w holds rows 16 w + [0, 16) as
-// mma.sync's m16n8 layout, N / 8 n-tiles) = A . B or += with `accumulate`,
-// k = 16, from descriptors: K-major (kTA, kTB = 0) or M/N-major (1).
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_n64(float (*d)[4], uint64_t da, uint64_t db,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
-}
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_n32(float (*d)[4], uint64_t da, uint64_t db,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
-}
-
-// acc[64 x kN] (the warpgroup's) = A[64 rows of `a`] . B[kN rows of `b`]^T
-// over D columns: a is the warpgroup's first row in a blocked [kRowsA][D]
-// tile, b a blocked [kN][D] tile.  Asynchronous: the caller commits and
-// waits.
-template <int D, int kRowsA, int kN>
-__device__ __forceinline__ void scores_wg(float (*acc)[4], const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t da = gmma_desc(a + (kk >> 2) * kRowsA * 64 + (kk & 3) * 16);
-    const uint64_t db = gmma_desc(b + (kk >> 2) * kN * 64 + (kk & 3) * 16);
-    if constexpr (kN == 64) {
-      wgmma_n64<0, 0>(acc, da, db, kk > 0);
-    } else {
-      static_assert(kN == 32, "N 64 or 32");
-      wgmma_n32<0, 0>(acc, da, db, kk > 0);
-    }
-  }
-}
-
-
-// The descriptor of a blocked tile read N-major (B transposed: its rows are
-// k, its 64-column blocks n): 8-row groups 1024 bytes apart (SBO), the
-// 64-column blocks `block_bytes` apart (LBO).
-__device__ __forceinline__ uint64_t gmma_desc_mn(const bf16* p, int block_bytes) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(block_bytes >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-// d[64 x N] += A . B, A the warpgroup's bf16 fragments in registers
-// (mma.sync's m16k16 A layout, warp w rows 16 w + [0, 16)), B from an
-// N-major descriptor, k = 16.
-__device__ __forceinline__ void wgmma_rs_n64(float (*d)[4], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs_n128(float (*d)[4], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// acc[64 x kCols] (the warpgroup's) += X[64 x kK] . T[kK rows][kCols]: X as
-// C fragments (a warp's 16 rows, kK / 8 n-tiles), T the first of kCols / 64
-// blocks of a blocked [kK][D] tile.  Asynchronous: the caller commits and
-// waits.
-template <int kCols, int kK>
-__device__ __forceinline__ void accumulate_wg(float (*acc)[4], const float (*x)[4],
-                                              const bf16* t) {
-#pragma unroll
-  for (int kk = 0; kk < kK / 16; ++kk) {
-    uint32_t fa[4];
-    c_to_a(fa, x[2 * kk], x[2 * kk + 1]);
-    const uint64_t db = gmma_desc_mn(t + 16 * kk * 64, kK * 128);
-    if constexpr (kCols == 128) {
-      wgmma_rs_n128(acc, fa, db);
-    } else {
-      static_assert(kCols == 64, "N 64 or 128");
-      wgmma_rs_n64(acc, fa, db);
-    }
-  }
-}
-
 // P and dS of one score: s the raw q.k, dp the dO.v, lse2 the row's LSE in
 // log2 units, dlt its Delta.  Under a cap, c = cap * tanh(s * cap_in).
 template <bool kCapped>

@@ -3,10 +3,13 @@
 and the autograd function that joins them.
 
 The forward replaces ``src/repro/kernels/flash_attention.py::flash_attention``.
-Bound by operations at the prefill shape.  bfloat16 inputs (the model's
-prefill) run on the tensor cores (bf16 ``mma.sync``, a ``cp.async`` ring);
-float32 inputs keep float32 FMAs on the CUDA cores.  The source says how
-each is laid out.  The plain version is ``ref.flash_attention``.
+bfloat16 runs the Hopper kernel (``wgmma`` products, TMA loads into an
+``mbarrier`` ring kept full by a producer warpgroup); TMA needs 16-byte
+aligned bases and strides, so ``tma_operands`` first zero-pads dh to a
+multiple of 8 and copies a tensor whose base is off 16 bytes (no model
+shape needs either).  float32 runs float32 FMAs on the CUDA cores.  The
+source says how each is laid out; its C entry picks the head-dim template
+from dh.  The plain version is ``ref.flash_attention``.
 
 The backward has no Pallas counterpart (the JAX package differentiates
 ``sdpa_chunked`` with ``jax.grad``); it recomputes the probabilities from
@@ -27,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -41,6 +45,19 @@ def _entry():
                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def tma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(q, k, v) as the bf16 kernel's TMA can address them: the same
+    tensors when dh is a multiple of 8 and every base 16-byte aligned (every
+    model shape); else dh zero-padded to the next multiple of 8 (which
+    leaves q . k unchanged and adds zero columns to the output), or a
+    misaligned tensor copied to a fresh, aligned one.  Reads only dh and
+    ``data_ptr() % 16``, so it runs on CPU tensors too."""
+    pad = -q.shape[-1] % 8
+    if pad:
+        return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
 
 
 @functools.cache
@@ -101,29 +118,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Query and key positions are their indices; ``window`` > 0 keeps keys
     j > i - window; head j reads KV head j // (H / KV).  A ``softcap`` > 0
-    maps each kept scaled score s to softcap * tanh(s / softcap) (tanhf)
-    before the softmax, as the JAX model does (the Pallas kernel has no
-    cap); the cap is a runtime argument.  All three tensors float32|bfloat16
-    of one dtype, contiguous, on one CUDA device; dh <= 256.  Raises on any
-    other input, a negative cap, and if the launch fails.  bfloat16 runs on
-    the tensor cores and rounds the probabilities to bf16 before P @ V;
-    float32 runs in float32 throughout.  With ``return_lse`` it returns
-    (out, lse): lse [B, H, Sq] float32, each row's log-sum-exp of the scores
-    as the softmax takes them (+inf for a row that keeps no key)."""
+    maps each kept scaled score s to softcap * tanh(s / softcap) before
+    the softmax, as the JAX model does (the Pallas kernel has no cap); the
+    cap is a runtime argument.  All three tensors float32|bfloat16 of one
+    dtype, contiguous, on one CUDA device; dh <= 256.  Raises on any other
+    input, a negative cap, and if the launch fails.  bfloat16 runs on the
+    tensor cores (through ``tma_operands``) and rounds the probabilities to
+    bf16 before P @ V; float32 runs in float32 throughout.  With
+    ``return_lse`` it returns (out, lse): lse [B, H, Sq] float32, each
+    row's log-sum-exp of the scores as the softmax takes them (+inf for a
+    row that keeps no key)."""
     _check(softcap, q=q, k=k, v=v)
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_operands(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     err = _entry()(out.data_ptr(), lse.data_ptr() if return_lse else None,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   b, sq, sk, h, kvh, dh, dh ** -0.5, int(causal), int(window),
+                   b, sq, sk, h, kvh, q.shape[-1], dh ** -0.5, int(causal), int(window),
                    float(softcap), _IS_BF16[q.dtype],
                    torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    if out.shape[-1] != dh:
+        out = out[..., :dh].contiguous()
     return (out, lse) if return_lse else out
 
 

@@ -365,8 +365,46 @@ FLASH_CASES = [
     (2, 200, 200, 4, 4, 64, False, 50, 1),
     (2, 300, 300, 4, 1, 128, True, 40, 1),       # a window inside one key tile
     (2, 512, 512, 8, 2, 128, True, 0, 8),        # the running max moves
-    (2, 65, 65, 4, 2, 50, True, 0, 1),           # dh not a multiple of 8
+    (2, 65, 65, 4, 2, 50, True, 0, 1),           # dh not a multiple of 8: padded
+    (2, 130, 130, 4, 2, 202, True, 0, 1),        # to 56 and to 208 (the 256 template)
+    # the wgmma kernel's tiles (192 query rows in three consumer warpgroups
+    # of 64 at dh 64 and 128, 128 rows in two at 192 and 256; 128 keys at
+    # dh 64, 64 at 128 and 256, 96 at 192): Sq < 64 (the other warpgroups
+    # idle) and 129 (a partial or second q-tile); causal with Sq < Sk, and
+    # Sq > Sk under a window, where the last q-tiles keep no key and load
+    # nothing; Sk off the key tile at each template; Jamba's GQA 64/8; dh 96
+    # (in the 128 template) and 192
+    (2, 40, 40, 4, 2, 128, True, 0, 1),
+    (2, 129, 129, 4, 4, 64, True, 0, 1),
+    (2, 129, 129, 4, 2, 256, True, 0, 8),
+    (2, 100, 300, 4, 2, 128, True, 0, 1),
+    (2, 400, 100, 4, 2, 64, True, 32, 1),
+    (1, 520, 200, 4, 4, 192, True, 64, 1),
+    (2, 256, 200, 4, 4, 128, False, 0, 1),
+    (2, 256, 100, 4, 2, 256, False, 0, 1),
+    (2, 256, 200, 4, 4, 192, False, 0, 1),
+    (1, 256, 256, 64, 8, 128, True, 0, 1),
+    (2, 300, 300, 4, 2, 96, True, 0, 1),
+    (2, 300, 300, 4, 4, 192, True, 0, 8),
+    (1, 5, 0, 2, 2, 64, False, 0, 1),            # no key: zeros, nothing loaded
 ]
+
+
+def _keeps_no_key(sq, sk, causal, window, device):
+    """[Sq] True where a query row keeps no key under the masks."""
+    i = torch.arange(sq, device=device)
+    hi = torch.clamp(i + 1, max=sk) if causal else torch.full_like(i, sk)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return hi <= lo
+
+
+def _flash_want(q, k, v, causal, window, softcap=0.0):
+    """The plain version, with 0 for rows that keep no key: the kernels
+    divide by max(l, 1e-20), the plain softmax of all-masked scores is
+    uniform."""
+    want = ref.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    empty = _keeps_no_key(q.shape[1], k.shape[1], causal, window, q.device)
+    return want.masked_fill(empty[None, :, None, None], 0)
 
 
 @pytest.mark.cuda
@@ -374,16 +412,16 @@ FLASH_CASES = [
 @pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,q_scale", FLASH_CASES)
 def test_flash_attention_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal, window,
                                   q_scale, dtype):
-    """The prefill shape (B=4, S=1024, dh=128), ragged S, GQA (16/4, 4/1)
-    and windows; dh 32-256; S from 1; Sq != Sk; q scaled by 8, so that the
-    running max moves and the rescale of O and l runs; dh = 50 takes the
-    element-wise loads.  bfloat16 runs on the tensor cores, float32 on the
-    CUDA cores."""
+    """The prefill shape (B=4, S=1024, dh=128), ragged S, GQA (16/4, 4/1,
+    64/8) and windows; dh 32-256; S from 1; Sq != Sk; q scaled by 8, so
+    that the running max moves and the rescale of O and l runs; dh = 50
+    and 202 run padded to a multiple of 8; rows that keep no key give 0.
+    bfloat16 runs the wgmma kernel, float32 the CUDA cores; one launch."""
     gen = torch.Generator(device=cuda_device).manual_seed(sq + sk + h + kv + dh)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
                for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
     q, k, v = ((q * q_scale).to(FLOATS[dtype]), k.to(FLOATS[dtype]), v.to(FLOATS[dtype]))
-    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    want = _flash_want(q, k, v, causal, window)
     before = flash_attention.launches
     got = dispatch.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
@@ -400,6 +438,13 @@ FLASH_CAP_CASES = [
     *((2, 300, 300, 4, 2, dh, True, 40, 1) for dh in (64, 128, 192, 256)),
     (2, 1, 1, 4, 2, 128, True, 0, 8),
     (2, 130, 130, 4, 4, 64, False, 0, 8),
+    # the wgmma kernel's edges under the cap: Sq < 64 and 129, Jamba's GQA
+    # 64/8, dh 96, and Sq > Sk under a window (q-tiles that keep no key)
+    (2, 40, 40, 4, 4, 192, True, 0, 8),
+    (2, 129, 129, 4, 2, 256, True, 0, 8),
+    (1, 200, 200, 64, 8, 128, True, 0, 8),
+    (2, 256, 256, 4, 2, 96, True, 0, 8),
+    (2, 400, 100, 4, 2, 128, True, 32, 8),
 ]
 
 
@@ -416,7 +461,7 @@ def test_flash_attention_softcap_vs_plain(cuda_device, b, sq, sk, h, kv, dh, cau
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
                for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
     q, k, v = ((q * q_scale).to(FLOATS[dtype]), k.to(FLOATS[dtype]), v.to(FLOATS[dtype]))
-    want = ref.flash_attention(q, k, v, causal=causal, window=window, softcap=50.0)
+    want = _flash_want(q, k, v, causal, window, softcap=50.0)
     before = flash_attention.launches
     got = dispatch.flash_attention(q, k, v, causal=causal, window=window, softcap=50.0)
     assert flash_attention.launches == before + 1
@@ -424,6 +469,75 @@ def test_flash_attention_softcap_vs_plain(cuda_device, b, sq, sk, h, kv, dh, cau
     if causal:
         first = v[:, :1].repeat_interleave(h // kv, dim=2)
         _close(got[:, :1], first, dtype, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("dh", [64, 96, 128, 192, 202, 256])
+def test_flash_attention_misaligned_base_vs_plain(cuda_device, dh, cap):
+    """bf16 q, k and v whose bases sit one element past a 16-byte boundary:
+    TMA cannot address them, so the wrapper copies them (or pads them, dh
+    202) and launches the one wgmma kernel once; the output is bit for bit
+    that of the same values aligned, and agrees with the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dh)
+    shapes = ((2, 150, 4, dh), (2, 150, 2, dh), (2, 150, 2, dh))
+    aligned = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+               for s in shapes]
+    shifted = []
+    for t in aligned:
+        buf = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert all(t.data_ptr() % 16 == 2 for t in shifted)
+    want = _flash_want(*aligned, True, 0, softcap=cap)
+    got = []
+    for tensors in (shifted, aligned):
+        before = flash_attention.launches
+        got.append(flash_attention(*tensors, causal=True, softcap=cap))
+        assert flash_attention.launches == before + 1
+        _close(got[-1], want, "bfloat16", exact=False)
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window,cap", [
+    (2, 1024, 1024, 16, 16, 128, True, 0, 0.0),
+    (1, 400, 100, 4, 2, 64, True, 32, 0.0),
+    (1, 300, 300, 4, 4, 192, True, 0, 0.0),
+    (1, 129, 129, 4, 2, 96, True, 0, 0.0),
+    (1, 300, 700, 8, 4, 256, False, 0, 50.0),
+    (1, 520, 200, 4, 4, 192, True, 64, 50.0),
+    (1, 129, 129, 4, 2, 50, True, 0, 50.0),
+])
+def test_flash_attention_lse_vs_plain(cuda_device, b, sq, sk, h, kv, dh, causal, window,
+                                      cap, dtype):
+    """``return_lse``: each row's logsumexp of the kept, scaled and capped
+    scores against a float32 logsumexp of the plain scores (rtol = atol =
+    1e-4), +inf exactly where a row keeps no key (Sq > Sk under a window),
+    and the output beside it against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + sk + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(FLOATS[dtype])
+               for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                               return_lse=True)
+    kk = k.float().repeat_interleave(h // kv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * dh ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    i, j = torch.arange(sq, device=cuda_device)[:, None], torch.arange(sk, device=cuda_device)
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=cuda_device)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    want = torch.logsumexp(torch.where(keep, s, float("-inf")), dim=-1)
+    empty = _keeps_no_key(sq, sk, causal, window, cuda_device)
+    assert bool(empty.any()) == (sq > sk and window > 0)
+    assert bool(torch.isposinf(lse[:, :, empty]).all())
+    assert bool(torch.isfinite(lse[:, :, ~empty]).all())
+    torch.testing.assert_close(lse[:, :, ~empty], want[:, :, ~empty], rtol=1e-4, atol=1e-4)
+    _close(out, _flash_want(q, k, v, causal, window, softcap=cap), dtype, exact=False)
 
 
 @pytest.mark.cuda

@@ -245,3 +245,88 @@ def test_build_names_each_library_by_its_source_and_every_header(tmp_path, monke
     names.append(_build._target("k")[1].name)
     assert all(n.startswith("libk-") and n.endswith(".so") for n in names)
     assert len(set(names)) == 4 and names[2] == names[3]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch and numpy at the top and
+    nothing of the card until a phase runs)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _flash_model_shapes():
+    """(name, B, Sq, Sk, H, KV, dh) of every flash call a model makes on the
+    card's main paths: chip_smoke's E_FLASH (gemma2, MLA, Jamba, phi-3),
+    F_FLASH (whisper's encoder and cross-attention) and G_BWD (training),
+    and moonshot's and llama3.2-3b's prefill."""
+    smoke = _chip_smoke()
+    shapes = [("moonshot", 4, 1024, 1024, 16, 16, 128),
+              ("llama3.2-3b", 1, 1024, 1024, 24, 8, 128)]
+    shapes += [(f"E_{n}", b, s, s, h, kv, dh) for n, b, s, h, kv, dh, *_ in smoke.E_FLASH]
+    shapes += [(f"F_{n}", b, sq, sk, h, kv, dh)
+               for n, b, sq, sk, h, kv, dh, _ in smoke.F_FLASH]
+    shapes += [(f"G_{n}", b, sq, sk, h, kv, dh)
+               for n, b, sq, sk, h, kv, dh, *_ in smoke.G_BWD]
+    return shapes
+
+
+FLASH_MODEL_SHAPES = _flash_model_shapes()
+
+
+@pytest.mark.parametrize("name,b,sq,sk,h,kv,dh", FLASH_MODEL_SHAPES,
+                         ids=[s[0] for s in FLASH_MODEL_SHAPES])
+def test_tma_operands_leave_every_model_shape_as_it_is(name, b, sq, sk, h, kv, dh):
+    """``tma_operands`` reads dh and data_ptr() % 16 alone, so it runs here
+    on CPU tensors: at every model shape (phi-3's 96, MLA's 192 among them)
+    the bf16 kernel reads q, k and v themselves, with no pad and no copy."""
+    from repro_torch.kernels.flash_attention import tma_operands
+    q = torch.empty((b, sq, h, dh), dtype=torch.bfloat16)
+    k, v = (torch.empty((b, sk, kv, dh), dtype=torch.bfloat16) for _ in range(2))
+    got = tma_operands(q, k, v)
+    assert all(g is t for g, t in zip(got, (q, k, v)))
+
+
+@pytest.mark.parametrize("dh,want", [(50, 56), (100, 104), (96, 96), (192, 192),
+                                     (202, 208), (200, 200), (8, 8), (1, 8),
+                                     (255, 256), (256, 256)])
+def test_tma_operands_pad_head_dim(dh, want):
+    """dh not a multiple of 8 gives strides TMA cannot take: q, k and v are
+    zero-padded to the next multiple of 8, the values kept, so q . k and
+    the output's first dh columns are unchanged."""
+    from repro_torch.kernels.flash_attention import tma_operands
+    gen = torch.Generator().manual_seed(dh)
+    q = torch.randn((1, 16, 4, dh), generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((1, 24, 2, dh), generator=gen).to(torch.bfloat16) for _ in range(2))
+    got = tma_operands(q, k, v)
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == (*t.shape[:-1], want) and g.is_contiguous()
+        assert g.data_ptr() % 16 == 0
+        assert torch.equal(g[..., :dh], t) and not g[..., dh:].any()
+    if want == dh:
+        assert all(g is t for g, t in zip(got, (q, k, v)))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_tma_operands_copy_a_misaligned_base(which):
+    """A base one element past a 16-byte boundary, in any of q, k and v, is
+    copied to an aligned tensor of the same values; the aligned ones are
+    passed through."""
+    from repro_torch.kernels.flash_attention import tma_operands
+    shape = (1, 64, 4, 128)
+    n = int(np.prod(shape))
+    tensors = {}
+    for name in ("q", "k", "v"):
+        buf = torch.arange(n + 8, dtype=torch.float32).to(torch.bfloat16)
+        start = (-buf.data_ptr() // 2) % 8 + (1 if name == which else 0)
+        tensors[name] = buf[start:start + n].view(shape)
+    assert [tensors[x].data_ptr() % 16 == 0 for x in "qkv"] == [x != which for x in "qkv"]
+    got = dict(zip("qkv", tma_operands(**tensors)))
+    for x in "qkv":
+        assert got[x].data_ptr() % 16 == 0 and got[x].is_contiguous()
+        assert torch.equal(got[x], tensors[x])
+        assert (got[x] is tensors[x]) == (x != which)

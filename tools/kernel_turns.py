@@ -15,17 +15,23 @@ inputs made from a seed:
     T = 3072, 72 slots x 60, D = 2048 bf16) and at its serving-load decode
     shape (G = 1, T = 384, 72 slots x 7), slots by occurrence rank as on the
     model path, against ``zero_()`` + ``index_put_(accumulate=True)``;
-  - ``dispatch.flash_attention`` without a soft-cap at moonshot's prefill
-    shape (B = 4, S = 1024, H = KV = 16, dh = 128) and gemma2's (H 8 / KV 4,
-    dh 256), causal, bf16, against SDPA, and its card time alone; its
-    outputs there and in float32
-    are hashed, and the roots' hashes must agree (``identical``: the
-    uncapped kernel's output bit for bit);
+  - ``dispatch.flash_attention`` in bf16 at the model shapes of
+    ``FLASH_SHAPES`` (moonshot's prefill, gemma2's with cap 50 and cap 0,
+    MLA's dh 192, phi-3's dh 96, Jamba's GQA 64/8, whisper's non-causal
+    encoder and cross-attention) against SDPA (no cap), and its card time
+    alone (``FLASH_KERNELS``: either tree's bf16 kernel); each root's
+    ``max_abs_err`` against the plain version on float32 copies, since a
+    redesigned kernel's bf16 output may differ from another's in its last
+    bits.  Its float32 outputs at moonshot's and gemma2's shapes are
+    hashed, and the roots' hashes must agree (``identical``);
   - ``flash_attention_bwd`` in bf16 at phase G's timed shapes
     (``chip_smoke.G_BWD_TIMED``: llama3.2-3b's training shape, gemma2's
     with cap 50, whisper's encoder and cross), against aten's flash
-    backward (``chip_smoke.sdpa_flash_bwd``, no cap).  Its outputs are not
-    hashed: bf16 dq is summed by atomics and varies in its last bits.
+    backward (``chip_smoke.sdpa_flash_bwd``, no cap), on an output and a
+    log-sum-exp from plain PyTorch (``plain_o_lse``), so that both roots'
+    backwards see the same bits.  Hashed: bf16 dk and dv (summed in a fixed
+    order) and float32 dq, dk and dv; bf16 dq is summed by atomics and
+    varies in its last bits.
   - ``ssd``: mamba2-780m's prefill at full width and depth (48 layers,
     seeded weights, [4, 1024] bf16, phase E (h)'s shape) under no_grad: ms
     a forward, and a hash of its logits (the SSD has no kernel; this times
@@ -65,6 +71,18 @@ GROUPS = ("route", "dispatch", "flash", "bwd", "ssd", "train")
 # the one-pass tile kernel and the conversion; three a bf16 call either way
 BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "bwd_tile_kernel",
                "bwd_convert_kernel")
+# the bf16 forward: the mma.sync kernel (before the Hopper redesign) or the
+# wgmma one; one a call either way
+FLASH_KERNELS = ("flash_bf16_kernel", "flash_wgmma_kernel")
+# (name, B, Sq, Sk, H, KV, dh, causal, cap): PERF.md's row 5 shapes
+FLASH_SHAPES = (("moonshot", 4, 1024, 1024, 16, 16, 128, True, 0.0),
+                ("gemma2_cap50", 4, 1024, 1024, 8, 4, 256, True, 50.0),
+                ("gemma2_cap0", 4, 1024, 1024, 8, 4, 256, True, 0.0),
+                ("mla", 4, 1024, 1024, 16, 16, 192, True, 0.0),
+                ("phi3", 1, 2048, 2048, 32, 32, 96, True, 0.0),
+                ("jamba", 1, 1024, 1024, 64, 8, 128, True, 0.0),
+                ("whisper_encoder", 4, 1500, 1500, 8, 8, 64, False, 0.0),
+                ("whisper_cross", 4, 448, 1500, 8, 8, 64, False, 0.0))
 
 
 def child(root: Path, groups: tuple[str, ...] = GROUPS) -> dict:
@@ -79,9 +97,13 @@ def child(root: Path, groups: tuple[str, ...] = GROUPS) -> dict:
     if "dispatch" in groups:
         out.update(time_dispatch(dev, root))
     if "flash" in groups:
-        out.update(time_flash(dev))
+        flash = time_flash(dev)
+        out["digests"].update(flash.pop("digests"))
+        out.update(flash)
     if "bwd" in groups:
-        out.update(time_bwd(dev))
+        bwd, digests = time_bwd(dev)
+        out.update(bwd)
+        out["digests"].update(digests)
     if "ssd" in groups:
         ssd, digest = time_ssd(dev)
         out["ssd_prefill"] = ssd
@@ -140,57 +162,93 @@ def time_dispatch(dev, root: Path) -> dict:
 
 
 def time_flash(dev) -> dict:
-    from chip_smoke import cuda_ms_turns, device_ms
-    from repro_torch.kernels import dispatch
+    from chip_smoke import cuda_ms_turns, device_ms, flash_bound, flash_inputs
+    from repro_torch.kernels import dispatch, ref
     out = {}
     digests = {}
-    for name, (h, kvh, dh) in (("flash_moonshot", (16, 16, 128)),
-                               ("flash_gemma2", (8, 4, 256))):
+    for name, b, sq, sk, h, kvh, dh, causal, cap in FLASH_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        q, k, v = (torch.randn((4, 1024, n, dh), generator=gen, device=dev)
-                   for n in (h, kvh, kvh))
+        q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, torch.float32)
+        if name in ("moonshot", "gemma2_cap0"):
+            got = dispatch.flash_attention(q, k, v, causal=causal)
+            digests[f"flash_{name}_float32"] = hashlib.sha1(
+                got.view(torch.int32).cpu().numpy().tobytes()).hexdigest()
         q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
-        for tag, args in (("bfloat16", (q16, k16, v16)), ("float32", (q, k, v))):
-            got = dispatch.flash_attention(*args, causal=True)
-            digests[f"{name}_{tag}"] = hashlib.sha1(
-                got.view(torch.int16 if tag == "bfloat16" else torch.int32)
-                .cpu().numpy().tobytes()).hexdigest()
+        fn = lambda: dispatch.flash_attention(q16, k16, v16, causal=causal, softcap=cap)
+        want = ref.flash_attention(*(x.float() for x in (q16, k16, v16)), causal=causal,
+                                   softcap=cap)
+        err = float((fn().float() - want).abs().max())
         qt = q16.transpose(1, 2)
         kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2) for x in (k16, v16))
         turns = cuda_ms_turns({
-            "kernel": lambda: dispatch.flash_attention(q16, k16, v16, causal=True),
+            "kernel": fn,
             "library": lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)}, iters=50)
-        out[name] = {"ms": turns["kernel"], "library_ms": turns["library"],
-                     "device_ms": device_ms(
-                         lambda: dispatch.flash_attention(q16, k16, v16, causal=True),
-                         "flash_bf16_kernel", calls=50)}
+                qt, kt, vt, is_causal=causal)}, iters=50)
+        out[f"flash_{name}"] = {"ms": turns["kernel"], "library_ms": turns["library"],
+                                "device_ms": device_ms(fn, FLASH_KERNELS, calls=50),
+                                "bound_ms": flash_bound(q16, k16, v16, causal, 0, cap)[0],
+                                "max_abs_err": err}
+        del q, k, v, q16, k16, v16, qt, kt, vt, want
+    torch.cuda.empty_cache()
     out["digests"] = digests
     return out
 
 
-def time_bwd(dev) -> dict:
+def plain_o_lse(q, k, v, causal, window, cap):
+    """The forward's output (in q's dtype) and row log-sum-exp [B, H, Sq]
+    by plain PyTorch in float32, the same bits in either root."""
+    from repro_torch.kernels import ref
+    b, sq, h, dh = q.shape
+    kk = k.float().repeat_interleave(h // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * dh ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    i = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)
+    keep = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    lse = torch.logsumexp(torch.where(keep, s, float("-inf")), dim=-1).contiguous()
+    o = ref.flash_attention(q, k, v, causal=causal, window=window, softcap=cap).contiguous()
+    return o, lse
+
+
+def time_bwd(dev) -> tuple[dict, dict]:
     from chip_smoke import (G_BWD, G_BWD_TIMED, cuda_ms_turns, device_ms, flash_inputs,
                             sdpa_flash_bwd)
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    out = {}
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    def digest(t):
+        return hashlib.sha1(t.contiguous().view(torch.int16 if t.element_size() == 2
+                                                else torch.int32).cpu().numpy().tobytes()
+                            ).hexdigest()
+    out, digests = {}, {}
     for name, b, sq, sk, h, kvh, dh, causal, window, cap, _ in G_BWD:
         if name not in G_BWD_TIMED:
             continue
         gen = torch.Generator(device=dev).manual_seed(SEED)
         q, k, v = flash_inputs(gen, dev, b, sq, sk, h, kvh, dh, torch.bfloat16)
         do = torch.randn((b, sq, h, dh), generator=gen, device=dev).to(torch.bfloat16)
-        o, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
-                                 return_lse=True)
-        fn = lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window,
-                                         softcap=cap)
+        o, lse = plain_o_lse(q, k, v, causal, window, cap)
+        opts = {"causal": causal, "window": window, "softcap": cap}
+        _, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **opts)
+        digests[f"bwd_{name}_bfloat16_dk"] = digest(dk)
+        digests[f"bwd_{name}_bfloat16_dv"] = digest(dv)
+        leaves32 = [x.float() for x in (q, k, v)]
+        o32, _ = plain_o_lse(*leaves32, causal, window, cap)
+        for key, grad in zip(("dq", "dk", "dv"),
+                             flash_attention_bwd(*leaves32, o32, do.float(), lse, **opts)):
+            digests[f"bwd_{name}_float32_{key}"] = digest(grad)
+        fn = lambda: flash_attention_bwd(q, k, v, o, do, lse, **opts)
         turns = cuda_ms_turns({"kernel": fn, "library": sdpa_flash_bwd(q, k, v, do, causal)},
                               iters=20)
         out[f"bwd_{name}"] = {"ms": turns["kernel"], "library_ms": turns["library"],
                               "device_ms": device_ms(fn, BWD_KERNELS, calls=50, per_call=3)}
-        del q, k, v, do, o, lse
+        del q, k, v, do, o, lse, leaves32, o32
     torch.cuda.empty_cache()
-    return out
+    return out, digests
 
 
 def time_ssd(dev) -> tuple[dict, str]:
