@@ -21,7 +21,12 @@ Phases (any failure exits non-zero before the result lines):
      chunks of 4096 with M = 16 PriPEs: HISTO at alpha 0 and 3, HLL at
      alpha 3 (a ragged stream, +1000 tuples through chunk_masked) and HHD at
      alpha 3.  Merged buffers must equal the app's numpy oracle bit for
-     bit, and each kernel's launch count must grow by one per chunk;
+     bit, and each kernel's launch count must grow by one per chunk.  Then
+     the apps' answers from that state (the app_answers line): HLL's
+     cardinality, equal to this script's copy of the formula on the oracle
+     registers and within 5% of the distinct count, and HHD's heavy hitters
+     among every distinct key at N // 1000 tuples, with recall 1 against
+     the true counts; each query's time by CUDA events;
   4. run the first 256 chunks of the alpha-3 HISTO stream on the card and on
      the CPU: identical merged buffers and every ExecStats field identical;
   5. time each kernel, its plain version and one library call at the main
@@ -4217,6 +4222,50 @@ def residency(dev) -> dict:
     return {"dryrun_bytes": want, "allocated_bytes": held, "rel_diff": rel}
 
 
+def hll_formula(regs: np.ndarray, p_bits: int) -> float:
+    """HyperLogLog's estimate of partitioned registers [M, 2^P / M], with
+    the small-range linear-counting correction: this script's own copy of
+    the formula, to hold ``hll.estimate`` against."""
+    m = 1 << p_bits
+    r = np.arange(m)
+    regs = regs[r % regs.shape[0], r // regs.shape[0]].astype(np.float64)
+    alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213 / (1 + 1.079 / m))
+    est = alpha * m * m / np.sum(2.0 ** (-regs))
+    zeros = int((regs == 0).sum())
+    return float(m * np.log(m / zeros)) if est <= 2.5 * m and zeros > 0 else float(est)
+
+
+def app_answers(hll, hhd, kept, hll_keys, hhd_keys) -> dict:
+    """The answers the HLL and HHD apps exist to give, from phase 3's merged
+    state on the card: HLL's cardinality (equal to ``hll_formula`` on the
+    oracle registers, within 5% of the true distinct count) and HHD's heavy
+    hitters among every distinct key at a threshold of N // 1000 tuples
+    (recall 1 against the true counts), each query's time by CUDA events."""
+    merged, regs = kept["hll_a3_ragged"]
+    est = hll.estimate(merged, 12)
+    want = hll_formula(regs, 12)
+    distinct = int(np.count_nonzero(np.bincount(hll_keys)))
+    assert est == want, f"hll.estimate {est} != the formula's {want}"
+    assert abs(est - distinct) <= 0.05 * distinct, (est, distinct)
+    sketch, _ = kept["hhd_a3"]
+    counts = np.bincount(hhd_keys)
+    cand = np.flatnonzero(counts)
+    thr = len(hhd_keys) // 1000
+    found = hhd.heavy_hitters(sketch, cand, 4, 1024, thr)
+    assert found.is_cuda
+    true_hh = set(np.flatnonzero(counts >= thr).tolist())
+    found = set(found.tolist())
+    assert true_hh and true_hh <= found, "HHD missed a true heavy hitter"
+    return {"hll": {"estimate": est, "formula": want, "distinct": distinct,
+                    "rel_err": abs(est - distinct) / distinct,
+                    "ms": cuda_ms(lambda: hll.estimate(merged, 12), 20, 2)},
+            "hhd": {"candidates": len(cand), "threshold": thr,
+                    "true_hitters": len(true_hh), "reported": len(found),
+                    "recall": len(true_hh & found) / len(true_hh),
+                    "ms": cuda_ms(lambda: hhd.heavy_hitters(sketch, cand, 4, 1024, thr),
+                                  20, 2)}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU",
@@ -4279,7 +4328,7 @@ def main() -> int:
          lambda k: hhd.oracle(k, 4, 1024, 16), cms_update, False),
     ]
     launches = {"route_accumulate": 0, "cms_update": 0}
-    results, picked, routed = [], {}, {}
+    results, picked, routed, kept = [], {}, {}, {}
     for cfg, spec, tuples, oracle, kernel, ragged in configs:
         d = Ditto(spec, chunk_size=CHUNK, device=dev)
         assert d.num_pri == 16
@@ -4325,8 +4374,12 @@ def main() -> int:
                "launches": counts, "oracle_exact": True}
         results.append(rec)
         print("e2e", json.dumps(rec))
+        if cfg in ("hll_a3_ragged", "hhd_a3"):
+            kept[cfg] = merged, want
         del chunks, mask, merged, stats
     torch.cuda.empty_cache()
+    answers = app_answers(hll, hhd, kept, stream_hll[:, 0], stream_3[:, 0])
+    print("app_answers", json.dumps(answers))
 
     print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 4")
     # ---- 4. card against CPU on the first chunks of the alpha-3 HISTO run

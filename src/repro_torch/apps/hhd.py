@@ -2,7 +2,9 @@
 
 Keys route by murmur3 (dst PE = h(key) % M); each PE owns a private
 count-min sketch of D rows x W columns over its key subrange.  The sketch
-is linear, so the ``add`` merge folds SecPE shadow sketches exactly.
+is linear, so the ``add`` merge folds SecPE shadow sketches exactly.  The
+estimate of key k is min_i sketch[pe(k), i, h_i(k)]; the heavy hitters are
+the keys whose estimate reaches a threshold.
 """
 from __future__ import annotations
 
@@ -16,6 +18,17 @@ from repro_torch.kernels import dispatch
 ROW_SEEDS = (0x9E3779B9, 0x7F4A7C15, 0x94D049BB, 0xD6E8FEB8)
 
 
+def _route(key: torch.Tensor, depth: int, width: int,
+           num_pri: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(PE [...], the D row columns [..., D]) of each key, int64: the PE is
+    h(key) % M, row i's column h_i(key) & (W - 1).  The sketch's update and
+    its point query both route through here."""
+    pe = murmur3_fmix32(key) % num_pri
+    cols = torch.stack([murmur3_fmix32(key, seed=ROW_SEEDS[i]) & (width - 1)
+                        for i in range(depth)], dim=-1)
+    return pe, cols
+
+
 def make_spec(depth: int, width: int, num_pri: int) -> DittoSpec:
     """CMS spec.  ``idx`` carries the D per-row columns as a [T, D] int32
     tensor; the PE update is the ``cms_update`` kernel (the plain version on
@@ -27,10 +40,9 @@ def make_spec(depth: int, width: int, num_pri: int) -> DittoSpec:
 
     def pre(chunk, num_pri_):
         key = chunk[..., 0]
-        dst = (murmur3_fmix32(key) % num_pri_).to(torch.int32)
-        cols = torch.stack([(murmur3_fmix32(key, seed=ROW_SEEDS[i]) & (width - 1))
-                            .to(torch.int32) for i in range(depth)], dim=-1)
-        return dst, cols, torch.ones(key.shape, dtype=torch.int32, device=key.device)
+        dst, cols = _route(key, depth, width, num_pri_)
+        return (dst.to(torch.int32), cols.to(torch.int32),
+                torch.ones(key.shape, dtype=torch.int32, device=key.device))
 
     def init_buffer(num_pe, device):
         return torch.zeros((num_pe, depth, width), dtype=torch.int32, device=device)
@@ -48,3 +60,28 @@ def oracle(keys: np.ndarray, depth: int, width: int, num_pri: int) -> np.ndarray
                & np.uint32(width - 1)).astype(np.int64)
         np.add.at(out, (pe, i, col), 1)
     return out
+
+
+def estimate(merged, keys, depth: int, width: int) -> torch.Tensor:
+    """CMS point query: min over rows of ``merged[pe(k), i, h_i(k)]`` on the
+    merged [M, D, W] sketches, on ``merged``'s device.
+
+    ``merged`` and ``keys`` are tensors or numpy arrays; numpy keys move to
+    ``merged``'s device.  Returns one estimate a key, in ``merged``'s dtype
+    (int32 from a run, int64 from ``oracle``)."""
+    merged = torch.as_tensor(merged)
+    keys = torch.as_tensor(keys, device=merged.device)
+    pe, cols = _route(keys, depth, width, merged.shape[0])
+    rows = torch.arange(depth, device=merged.device)
+    return merged[pe[..., None], rows, cols].amin(-1)
+
+
+def heavy_hitters(merged, candidate_keys, depth: int, width: int,
+                  threshold: int) -> torch.Tensor:
+    """The candidates whose CMS estimate is at least ``threshold``, in the
+    candidates' order, on ``merged``'s device.  CMS only overestimates, so
+    recall is 1 (every true heavy hitter among the candidates is
+    returned)."""
+    merged = torch.as_tensor(merged)
+    keys = torch.as_tensor(candidate_keys, device=merged.device)
+    return keys[estimate(merged, keys, depth, width) >= threshold]

@@ -4,6 +4,7 @@
 = max over the stream of (leading zeros of the remaining 32-P hash bits)
 + 1.  The register file is partitioned across M PriPEs (register r -> PE
 r % M, local r // M); combine = ``max``, which is exactly the HLL merge.
+``estimate`` turns the merged registers into the cardinality.
 """
 from __future__ import annotations
 
@@ -56,3 +57,25 @@ def oracle(keys: np.ndarray, p_bits: int, num_pri: int) -> np.ndarray:
     out = np.zeros((num_pri, -(-num_regs // num_pri)), np.int32)
     np.maximum.at(out, (reg % num_pri, reg // num_pri), rho)
     return out
+
+
+def estimate(merged, p_bits: int) -> float:
+    """Cardinality estimate from merged partitioned registers [M, 2^P / M]
+    (a tensor on any device, or numpy), with the standard small-range
+    linear-counting correction.
+
+    The 2^P registers are read to the host and reduced in float64 numpy,
+    as the JAX package does: a reduction on the card would sum in another
+    order and lose bit-equality for a few KB of work."""
+    if isinstance(merged, torch.Tensor):
+        merged = merged.cpu().numpy()
+    m = 1 << p_bits
+    mm = merged.shape[0]
+    r = np.arange(m)
+    regs = merged[r % mm, r // mm].astype(np.float64)
+    alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213 / (1 + 1.079 / m))
+    est = alpha * m * m / np.sum(2.0 ** (-regs))
+    zeros = int((regs == 0).sum())
+    if est <= 2.5 * m and zeros > 0:
+        est = m * np.log(m / zeros)
+    return float(est)

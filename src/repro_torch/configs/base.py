@@ -119,6 +119,16 @@ class ArchConfig:
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    def moe_capacity(self) -> int:
+        """Tokens a slot takes per dispatch group under uniform load."""
+        from repro_torch.models.moe import uniform_capacity
+        return uniform_capacity(self.moe_group_size, self.top_k,
+                                self.num_experts, self.capacity_factor)
+
+    def has(self, kind: str) -> bool:
+        """Whether ``kind`` is one of the block or FFN kinds of the stack."""
+        return kind in self.block_pattern or kind in self.ffn_pattern
+
 
 # The four input shapes of the LM-family cells, as in
 # ``repro/configs/base.py``: one training, one prefill and two decode shapes.

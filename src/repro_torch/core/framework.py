@@ -31,11 +31,16 @@ def tune_pe_counts(mem_width_bytes: int, tuple_bytes: int, ii_pre: int,
 @dataclasses.dataclass(frozen=True)
 class GeneratedImpl:
     """One point of the generated family: an executor with X SecPEs.
-    ``run(chunks, plan=None, mask=None) -> (merged, ExecStats)``."""
+    ``run(chunks, plan=None, mask=None) -> (merged, ExecStats)`` executes
+    one chunk stream; ``run_streams(tuples, plans=None, mask=None)`` runs
+    [num_streams, num_chunks, chunk, ...] as lanes of one batched step, with
+    a leading streams axis on every output and a profiler and plan a
+    stream."""
 
     num_pri: int
     num_sec: int
     run: Callable[..., Any]
+    run_streams: Optional[Callable[..., Any]] = None
 
     @property
     def buffer_capacity_fraction(self) -> float:
@@ -63,10 +68,13 @@ class Ditto:
     def generate(self, xs: Optional[Sequence[int]] = None) -> list[GeneratedImpl]:
         """Implementation variants X = 0..M-1 (paper §V-C)."""
         xs = range(self.num_pri) if xs is None else xs
-        return [GeneratedImpl(self.num_pri, x, executor.make_executor(
-            self.spec, self.num_pri, x, self.chunk_size,
-            profile_chunks=self.profile_chunks, threshold=self.threshold,
-            mem_width_tuples=self.mem_width_tuples, device=self.device))
+        kw = dict(profile_chunks=self.profile_chunks, threshold=self.threshold,
+                  mem_width_tuples=self.mem_width_tuples, device=self.device)
+        return [GeneratedImpl(
+            self.num_pri, x,
+            executor.make_executor(self.spec, self.num_pri, x, self.chunk_size, **kw),
+            executor.make_multistream_executor(self.spec, self.num_pri, x,
+                                               self.chunk_size, **kw))
             for x in xs]
 
     def select(self, keys: np.ndarray, tolerance: float = 0.01,

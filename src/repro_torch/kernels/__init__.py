@@ -10,8 +10,9 @@ PyTorch versions.
   flash_attention  -- online-softmax attention forward (causal, window, GQA)
 
 ``dispatch`` is what the executor and the models call: the tensor's device picks the
-plain version (CPU) or the kernel (CUDA).
+plain version (CPU) or the kernel (CUDA).  ``ops`` is the functional public
+API over it, ``ref`` the plain versions.
 """
-from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import dispatch, ops, ref
 
-__all__ = ["dispatch", "ref"]
+__all__ = ["dispatch", "ops", "ref"]

@@ -42,6 +42,12 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def int32_indices(idx: torch.Tensor, bound: int) -> torch.Tensor:
+    """``idx`` as contiguous int32 for a kernel, with entries outside
+    [0, bound) set to -1 before the cast, so that none wraps into range."""
+    return torch.where((idx >= 0) & (idx < bound), idx, -1).to(torch.int32).contiguous()
+
+
 def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
                      idx: torch.Tensor, value: torch.Tensor,
                      combine: str) -> torch.Tensor:
@@ -60,18 +66,15 @@ def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
 def scatter_accumulate(flat_idx: torch.Tensor, value: torch.Tensor,
                        num_bins: int, combine: str = "add") -> torch.Tensor:
     """Scatter-accumulate ``value`` into ``num_bins`` fresh cells at
-    ``flat_idx`` (the semantics of ``repro.kernels.ref.scatter_accumulate``):
-    out-of-range indices are dropped, and ``max`` starts from zeros, so its
-    result is floored at 0."""
+    ``flat_idx`` (``ref.scatter_accumulate``): out-of-range indices are
+    dropped, and ``max`` starts from zeros, so its result is floored at 0.
+    On the card, through ``route_accumulate`` on a [1, num_bins] buffer."""
+    if not _on_cuda(value):
+        return ref.scatter_accumulate(flat_idx, value, num_bins, combine)
     out = torch.zeros((1, num_bins), dtype=value.dtype, device=value.device)
-    if _on_cuda(out):
-        # the kernel takes int32 indices: out-of-range ones become -1 before
-        # the cast, so that none wraps into range
-        ok = (flat_idx >= 0) & (flat_idx < num_bins)
-        flat_idx = torch.where(ok, flat_idx, -1).to(torch.int32).contiguous()
-        value = value.contiguous()
-    eff = torch.zeros_like(flat_idx, dtype=torch.int32)
-    return pe_buffer_update(out, eff, flat_idx, value, combine).view(-1)
+    flat_idx = int32_indices(flat_idx, num_bins)
+    eff = torch.zeros_like(flat_idx)
+    return _route_cuda(out, eff, flat_idx, value.contiguous(), combine).view(-1)
 
 
 def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,

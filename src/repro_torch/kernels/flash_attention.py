@@ -32,10 +32,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+NEG_INF = ref.NEG_INF    # JAX's name; the kernels hold their own kNegInf
 
 
 @functools.cache

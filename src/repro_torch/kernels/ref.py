@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30          # the score of a masked key, in the kernels as in Pallas
+
 
 def max_identity(dtype: torch.dtype):
     """Neutral element of ``max`` for ``dtype``."""
@@ -47,6 +49,17 @@ def pe_buffer_update(buffers: torch.Tensor, eff: torch.Tensor,
     else:
         raise ValueError(f"combine must be add|max, got {combine!r}")
     return buffers
+
+
+def scatter_accumulate(flat_idx: torch.Tensor, value: torch.Tensor,
+                       num_bins: int, combine: str = "add") -> torch.Tensor:
+    """Scatter-accumulate ``value`` into ``num_bins`` fresh cells at
+    ``flat_idx`` (``repro/kernels/ref.scatter_accumulate``): out-of-range
+    indices are dropped, and ``max`` starts from zeros, so its result is
+    floored at 0."""
+    out = torch.zeros((1, num_bins), dtype=value.dtype, device=value.device)
+    eff = torch.zeros_like(flat_idx, dtype=torch.int32)
+    return pe_buffer_update(out, eff, flat_idx, value, combine).view(-1)
 
 
 def cms_update(sketch: torch.Tensor, eff: torch.Tensor, cols: torch.Tensor,
@@ -131,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         keep &= kp <= qp
     if window:
         keep &= kp > qp - window
-    p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+    p = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(q.dtype)
 
 

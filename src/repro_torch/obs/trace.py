@@ -226,9 +226,9 @@ class SpanTracer:
                 self.dropped += 1
             self._events.extend(evs)
 
-    def defer(self, make_events, payload) -> None:
+    def defer(self, builder, payload) -> None:
         """Queue one span batch for LAZY materialization: the hot path
-        pays a single tuple append; ``make_events(payload)`` runs at export
+        pays a single tuple append; ``builder(payload)`` runs at export
         time (``events()``/``write()``) and must return the
         ``complete_batch`` span-tuple list.  This is how the service
         emits per-request span trees at sub-microsecond request cost.
@@ -246,7 +246,7 @@ class SpanTracer:
                 self.dropped_deferred += 1
             except IndexError:
                 pass
-        d.append((make_events, payload))
+        d.append((builder, payload))
 
     def _materialize(self) -> None:
         """Drain the deferred ring into real events (idempotent; safe

@@ -8,8 +8,8 @@ serving stack's error taxonomy (``errors``)."""
 from repro_torch.serve.durability import (DurableSessionEngine, WriteAheadLog,
                                           recover)
 from repro_torch.serve.engine import (DecodeEngine, Request, StreamEngine,
-                                      StreamRequest)
-from repro_torch.serve.errors import EnginePreempted
+                                      StreamRequest, greedy_generate, prefill_cache)
+from repro_torch.serve.errors import EnginePreempted, SessionError
 from repro_torch.serve.service import (AsyncServiceClient, FrameDecoder, ServiceClient,
                                        ServiceConfig, SessionService, TokenBucket,
                                        encode_frame)
@@ -17,5 +17,6 @@ from repro_torch.serve.session import SessionEngine, SessionStats
 
 __all__ = ["AsyncServiceClient", "DecodeEngine", "DurableSessionEngine", "EnginePreempted",
            "FrameDecoder", "Request", "ServiceClient", "ServiceConfig", "SessionEngine",
-           "SessionService", "SessionStats", "StreamEngine", "StreamRequest", "TokenBucket",
-           "WriteAheadLog", "encode_frame", "recover"]
+           "SessionError", "SessionService", "SessionStats", "StreamEngine", "StreamRequest",
+           "TokenBucket", "WriteAheadLog", "encode_frame", "greedy_generate", "prefill_cache",
+           "recover"]

@@ -1672,3 +1672,105 @@ def test_dry_run_residency_equals_the_cards(cuda_device, optimizer):
     assert abs(held - want) <= 0.02 * want, (held, want)
     del state, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- the public op API
+def _launches():
+    return {k.__name__: k.launches for k in (route_accumulate, cms_update, onehot_dispatch,
+                                             onehot_combine, flash_attention)}
+
+
+def _launched(before, name):
+    """The op launched its kernel (once) and no other."""
+    torch.cuda.synchronize()
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k == name) for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("combine", ["add", "max"])
+def test_ops_scatter_accumulate_vs_plain(cuda_device, combine, dtype):
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(-5, 1000, 4096))         # int64, some dropped
+    idx[:3] = torch.tensor([2**32 + 5, -1, 1000])
+    val = _values(rng, 4096, dtype).to(DTYPES[dtype])
+    want = ops.scatter_accumulate(idx, val, 1000, combine)
+    before = _launches()
+    got = ops.scatter_accumulate(idx.to(cuda_device), val.to(cuda_device), 1000, combine)
+    _launched(before, "route_accumulate")
+    _assert_same(got, want, exact=dtype == "int32" or combine == "max")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ops_cms_update_vs_plain(cuda_device, dtype):
+    rng = np.random.default_rng(12)
+    eff = torch.from_numpy(rng.integers(0, 16, 4096))             # int64
+    eff[::7], eff[3::11] = -1, 16                                  # padding, sentinel
+    cols = torch.from_numpy(rng.integers(0, 1024, (4096, 4)))
+    val = _values(rng, 4096, dtype, signed=False).to(DTYPES[dtype])
+    want = ops.cms_update(eff, cols, val, 16, 4, 1024)
+    before = _launches()
+    got = ops.cms_update(eff.to(cuda_device), cols.to(cuda_device), val.to(cuda_device),
+                         16, 4, 1024)
+    _launched(before, "cms_update")
+    _assert_same(got, want, exact=dtype == "int32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("with_gate", [False, True])
+def test_ops_onehot_pack_and_unpack_vs_plain(cuda_device, dtype, with_gate):
+    rng = np.random.default_rng(13)
+    eff, slot = _moe_cells(rng, 1, 512, 16, 40, True, cuda_device)
+    eff, slot = eff[0], slot[0]
+    x = torch.from_numpy(rng.standard_normal((512, 256)).astype(np.float32))
+    x = x.to(cuda_device, FLOATS[dtype])
+    gate = (torch.from_numpy(rng.random(512).astype(np.float32)).to(cuda_device)
+            if with_gate else None)
+    before = _launches()
+    packed = ops.onehot_dispatch(eff, slot, x, 16, 40)
+    _launched(before, "onehot_dispatch")
+    _close(packed, ops.onehot_dispatch(eff.cpu(), slot.cpu(), x.cpu(), 16, 40), dtype, True)
+    before = _launches()
+    y = ops.onehot_combine(eff, slot, packed, gate)
+    _launched(before, "onehot_combine")
+    want = ops.onehot_combine(eff.cpu(), slot.cpu(), packed.cpu(),
+                              None if gate is None else gate.cpu())
+    _close(y, want, dtype, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("causal,window,h,kv", [(True, 0, 8, 8), (True, 64, 8, 2),
+                                                (False, 0, 6, 2)])
+def test_ops_flash_attention_vs_plain(cuda_device, dtype, causal, window, h, kv):
+    gen = torch.Generator().manual_seed(14)
+    q, k, v = (torch.randn((2, 256, n, 64), generator=gen) for n in (h, kv, kv))
+    q, k, v = (t.to(cuda_device, FLOATS[dtype]) for t in (q, k, v))
+    before = _launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    _launched(before, "flash_attention")
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    _close(got, want, dtype, False)
+
+
+@pytest.mark.cuda
+def test_hhd_heavy_hitters_on_card_equal_cpu(cuda_device):
+    """The point query and the heavy-hitter set of a sketch on the card
+    equal those of the same sketch on the CPU, bit for bit and in the
+    candidates' order, with recall 1 against the true counts."""
+    tuples = zipf_tuples(4096 * 8, 50000, 1.5, seed=15)
+    keys = tuples[:, 0]
+    merged = torch.as_tensor(hhd.oracle(keys, 4, 1024, 16)).to(torch.int32)
+    cand = np.unique(keys)
+    est = hhd.estimate(merged.to(cuda_device), cand, 4, 1024)
+    assert est.is_cuda and torch.equal(est.cpu(), hhd.estimate(merged, cand, 4, 1024))
+    thr = len(keys) // 1000
+    got = hhd.heavy_hitters(merged.to(cuda_device), cand, 4, 1024, thr)
+    want = hhd.heavy_hitters(merged, cand, 4, 1024, thr)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    true_hh = set(np.flatnonzero(np.bincount(keys) >= thr).tolist())
+    assert true_hh and true_hh <= set(got.tolist())

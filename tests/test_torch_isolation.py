@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and no line of
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
+"""The port stands alone: nothing under ``src/repro_torch/`` or
+``examples/torch/`` and no line of ``chip_smoke.py`` imports ``jax`` or the
+JAX package ``repro``, and
 importing every module of the port leaves both out of ``sys.modules``."""
 import re
 import subprocess
@@ -12,7 +13,8 @@ IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b", re.M)
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((REPO / "examples" / "torch").glob("*.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 def test_no_source_line_imports_jax_or_repro():
