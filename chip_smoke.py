@@ -239,8 +239,9 @@ Then the other configs, one model on the card at a time:
      depth, adamw and warmup_cosine, batch [8, 448] with 1500 frames, 20
      steps on one fixed batch; (c) llama3.2-3b at full width, 4 of its 28
      layers, [2, 1024], 8 steps; in both the loss falls, every parameter
-     stays finite, and the forward and backward kernels launch once an
-     attention a step; (d) one step of whisper-base's first 2 + 2 layers in
+     stays finite, and under the configs' default remat="full" the forward
+     kernel launches twice an attention a step (the forward and the
+     backward's recompute), the backward kernel once; (d) one step of whisper-base's first 2 + 2 layers in
      float32 on the card and the CPU: the loss within 1e-3, gradients and
      params after the step within 1e-3 of each leaf's largest value; (e)
      repro_torch.launch.train.main at --arch whisper-base, 4 steps with a
@@ -257,21 +258,35 @@ Then the other configs, one model on the card at a time:
      value) or 1e-2 (bf16, in norm), 2 packs and 3 unpacks a case; (b')
      moonshot-v1-16b-a3b at full width, 2 of its 48 layers, [2, 1024], 8
      steps; (c') mamba2-780m at full width and depth, [2, 1024], 8 steps; in
-     both as (b), with the MoE pack twice and the unpack three times a MoE
-     layer a step (mamba2 launches no kernel); (d') as (d), one step of
+     both as (b), with the MoE pack three times and the unpack four times a
+     MoE layer a step (the forward, the recompute, the backward; mamba2
+     launches no kernel); (d') as (d), one step of
      deepseek-v2-lite's first layer at full width on [1, 256], mamba2's
      first 2 on [1, 512] (two SSD chunks) and Jamba's REDUCED config with
      its adamw8bit (the loss and gradients only), the params after the
      step against the CPU optimizer applied to the card's gradients.  Prints the training
      line: ms a step, tokens/s, peak memory and the kernels' shares of a
-     profiled step with its top kernels.
+     profiled step with its top kernels.  Then activation checkpointing:
+     (f) llama3.2-3b as (c) and mamba2-780m as (c') under remat none, full
+     and dots, whisper-base as (b) under none and full (ms a step, peak GB,
+     tokens/s, losses and launches each; the first step's loss equal bit
+     for bit across the values; mamba2's and whisper's peaks lower under
+     full than under none); (g) one loss and backward of llama3.2-3b (4
+     layers) and moonshot (2 layers) at [2, 1024] under full and dots
+     against none's: the loss equal, in float32 (TF32 off) each gradient
+     leaf within 1e-3 of its largest value, in bf16 the same readings
+     printed beside a second none's (dQ by atomics); (h)
+     mamba2-780m at full depth on [8, 1024] under full, 4 steps, its peak
+     GB (a batch the run without remat would not fit).  Prints the remat
+     line.
   H. the dry-run side, no kernel: (a) python -m repro_torch.launch.dryrun
      --arch all --shape all --mesh both in a process of its own (a fake
      process group of 512 ranks, every state on meta): it exits 0 and each
      of the 80 cells is ok or JAX's long_500k skip; one line a mesh with
      the cells ok and skipped and the largest per-device argument GB
      against 80; (b) the cost model's FLOPs of the steps timed above, the
-     llama3.2-3b training step of G (c) and its [1, 1024] prefill of E,
+     llama3.2-3b training step of G (c) (remat="full": the recomputed
+     forward counted) and its [1, 1024] prefill of E,
      over the measured seconds times the bf16 peak (989.4e12): each share
      in (0, 1.05], printed beside the card's name and power limit; (c) the
      dry run's bytes of G (c)'s training state on a 1 x 1 mesh against
@@ -3545,6 +3560,12 @@ G_LM_PARITY = (("deepseek-v2-lite-16b", 1, (1, 256), "adamw"),
                ("mamba2-780m", 2, (1, 512), "adamw"),
                ("jamba-1.5-large-398b", None, (2, 64), "adamw8bit"))
 G_CLI_STEPS = (4, 8)          # the launcher's run, then its resumption
+# activation checkpointing: the values each run of (f) takes (the default
+# "full" is (b), (c) and (c') themselves), and (h)'s run that only remat
+# fits: mamba2-780m at all 48 layers on [8, 1024], 4 steps
+G_REMAT = {"llama": ("none", "dots"), "mamba2": ("none", "dots"), "whisper": ("none",)}
+G_REMAT_GRADS = (("llama3.2-3b", 4), ("moonshot-v1-16b-a3b", 2))   # arch, layers
+G_REMAT_ONLY = ((8, 1024), 4)
 G_GATE = 1e-3                 # card vs CPU: max |a - b| / max |b| of any leaf
 # (name, G, T, P, C, D, share of tuples on the sentinel eff = P): moonshot's
 # first-layer training shape (2 x 1024 tokens in groups of 512, top-6, 64 +
@@ -3787,12 +3808,14 @@ def step_profile(step, state, batch) -> dict:
     return out
 
 
-def train_run(dev, cfg, batch, steps: int, per_step: dict, schedule) -> tuple[dict, dict]:
-    """Phase G (b), (c), (b'), (c'): ``steps`` training steps of ``cfg`` at
-    seeded random weights on one fixed batch, the main path counted from 0:
-    each kernel launched ``per_step[name]`` times a step, the loss falls and
-    every parameter stays finite.  Then ms a step (the steps after the
-    first), tokens/s and the kernels' shares of a profiled step."""
+def train_run(dev, cfg, batch, steps: int, per_step: dict, schedule,
+              profile: bool = True) -> tuple[dict, dict]:
+    """Phase G (b), (c), (b'), (c'), (f), (h): ``steps`` training steps of
+    ``cfg`` at seeded random weights on one fixed batch, the main path
+    counted from 0: each kernel launched ``per_step[name]`` times a step,
+    the loss falls and every parameter stays finite.  Then ms a step (the
+    steps after the first), tokens/s, the peak GB and, where ``profile``,
+    the kernels' shares of a profiled step."""
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
     model = zoo.build(cfg, device=dev)
@@ -3810,14 +3833,15 @@ def train_run(dev, cfg, batch, steps: int, per_step: dict, schedule) -> tuple[di
         f"{cfg.name}: a parameter is not finite"
     step_s = sum(secs[1:]) / (steps - 1)
     b, s = batch["tokens"].shape
-    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
-           "batch": [b, s], "steps": steps, "losses": losses,
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+           "params": n_params, "batch": [b, s], "steps": steps, "losses": losses,
            "first_step_s": secs[0], "ms_per_step": 1e3 * step_s,
            "tokens_per_s": b * s / step_s, "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     if "frames" in batch:
         rec["frames"] = batch["frames"].shape[1]
-    rec["profile"] = step_profile(step, state, batch)
+    if profile:
+        rec["profile"] = step_profile(step, state, batch)
     return rec, counts
 
 
@@ -3830,10 +3854,24 @@ def lm_train_per_step(cfg) -> dict:
     """Launches a training step of a decoder-only ``cfg``: the flash forward
     and backward once an attention (or MLA) layer; the MoE pack twice (the
     forward, the unpack's backward) and the unpack three times (the
-    forward, the pack's backward, dgate's rows) a MoE layer."""
+    forward, the pack's backward, dgate's rows) a MoE layer.  Under remat
+    other than "none" the backward first recomputes each period's forward:
+    one more flash forward, pack and unpack a layer (a period's last saved
+    tensor comes after its last kernel, so the recompute's early stop skips
+    none of them)."""
     attn, moe = layer_counts(cfg)
-    return {"flash_attention": attn, "flash_attention_bwd": attn,
-            "onehot_dispatch": 2 * moe, "onehot_combine": 3 * moe}
+    fwd = 1 if cfg.remat == "none" else 2
+    return {"flash_attention": fwd * attn, "flash_attention_bwd": attn,
+            "onehot_dispatch": (fwd + 1) * moe, "onehot_combine": (fwd + 2) * moe}
+
+
+def whisper_train_per_step(cfg) -> dict:
+    """Launches a training step of whisper ``cfg``: the flash forward once
+    an attention a forward, twice under remat (every layer recomputed), and
+    its backward once."""
+    per_forward = cfg.encoder_layers + 2 * cfg.num_layers
+    fwd = 1 if cfg.remat == "none" else 2
+    return {"flash_attention": fwd * per_forward, "flash_attention_bwd": per_forward}
 
 
 def lm_train_batch(cfg, shape, dev, seed: int = SEED) -> dict:
@@ -3998,8 +4036,9 @@ def train_cli(dev) -> tuple[dict, dict]:
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
+    from repro_torch.configs import get
     first, last = G_CLI_STEPS
-    per_step = whisper_flash_per_forward()
+    per_step = whisper_train_per_step(get(F_ARCH))
     out = io.StringIO()
     runs = []
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
@@ -4020,12 +4059,70 @@ def train_cli(dev) -> tuple[dict, dict]:
             del state
     for run, ran in zip(runs, (first, last - first)):     # the resumption runs the rest
         assert run["launches"] == {"onehot_dispatch": 0, "onehot_combine": 0,
-                                   "flash_attention": ran * per_step,
-                                   "flash_attention_bwd": ran * per_step}, run
+                                   **{k: ran * n for k, n in per_step.items()}}, run
     text = out.getvalue()
     assert f"finished at step {first}" in text and f"finished at step {last}" in text, text
     total = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     return {"runs": runs, "output": text.strip().splitlines()}, total
+
+
+def remat_grads(dev) -> list:
+    """Phase G (g): one loss and backward of each of G_REMAT_GRADS at full
+    width on [2, 1024] from the same weights and batch, under remat none,
+    none again, full and dots, in float32 (TF32 off) and in bf16: the loss
+    equal bit for bit across the four, and each gradient leaf's max |a - b|
+    / max |b| against the first none's.  In float32 (every kernel of the
+    backward deterministic) full's and dots' within G_GATE; in bf16 they
+    are printed beside the second none's, the backward's own spread from
+    run to run (dQ by atomics).  The launches as ``lm_train_per_step``
+    counts."""
+    from repro_torch.configs import get
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for arch, layers in G_REMAT_GRADS:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            base = dataclasses.replace(get(arch), num_layers=layers, compute_dtype=dtype)
+            params = zoo.build(base, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(SEED))
+            batch = lm_train_batch(base, (2, 1024), dev)
+            losses, diffs, want = [], {}, None
+            for value in ("none", "none_again", "full", "dots"):
+                cfg = dataclasses.replace(base, remat=value.removesuffix("_again"))
+                leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+                reset_counts()
+                loss, _ = zoo.build(cfg, device=dev).loss_fn(leaves, batch)
+                loss.backward()
+                torch.cuda.synchronize()
+                counts = train_counts()
+                assert counts == {k: lm_train_per_step(cfg).get(k, 0) for k in counts}, \
+                    (arch, value, counts)
+                losses.append(float(loss.detach()))
+                grads = [t.grad for t in tree_leaves(leaves)]
+                del leaves, loss
+                if want is None:
+                    want = grads
+                    continue
+                diffs[value] = max(float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+                                   for g, w in zip(grads, want))
+                del grads
+            del want, params
+            torch.cuda.empty_cache()
+            assert len(set(losses)) == 1, (arch, dtype, losses)
+            if dtype == "float32":
+                assert max(diffs["full"], diffs["dots"]) <= G_GATE, (arch, diffs)
+            print(f"remat_grads {arch} {layers} layers {dtype}: loss {losses[0]} under all "
+                  f"four; max rel grad diff against none: none again {diffs['none_again']:.3e}, "
+                  f"full {diffs['full']:.3e}, dots {diffs['dots']:.3e}"
+                  + (f" (gate {G_GATE})" if dtype == "float32" else " (not gated)"))
+            out.append({"arch": arch, "layers": layers, "compute_dtype": dtype,
+                        "tokens": [2, 1024], "loss": losses[0],
+                        "max_rel_grad_diff_vs_none": diffs,
+                        "gate": G_GATE if dtype == "float32" else None,
+                        "host_s": time.perf_counter() - t0})
+    return out
 
 
 def whisper_flash_per_forward() -> int:
@@ -4051,21 +4148,21 @@ def training_path(dev) -> tuple[dict, dict, dict]:
     rec["moe_grads"] = check_moe_grads(dev)
     total = dict.fromkeys(train_counts(), 0)
 
-    def run(key, cfg, batch, steps, per_step, **extra):
+    def run(key, cfg, batch, steps, per_step, profile=True, **extra):
         t0 = time.perf_counter()
         one, counts = train_run(dev, cfg, batch, steps, per_step,
-                                warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps))
+                                warmup_cosine(cfg.max_lr, max(steps // 10, 1), steps),
+                                profile)
         one["phase_s"] = time.perf_counter() - t0
-        rec[key] = dict(one, **extra)
         for k in total:
             total[k] += counts[k]
         torch.cuda.empty_cache()
+        return dict(one, **extra)
 
     cfg = get(F_ARCH)
     b, s, steps = G_WHISPER
-    per_forward = whisper_flash_per_forward()
-    run("whisper", cfg, whisper_batch(cfg, (b, s), dev, labels=True), steps,
-        {"flash_attention": per_forward, "flash_attention_bwd": per_forward})
+    whisper = whisper_batch(cfg, (b, s), dev, labels=True)
+    rec["whisper"] = run("whisper", cfg, whisper, steps, whisper_train_per_step(cfg))
 
     # the CPU comparisons take fresh weights of their own layers
     model = zoo.build(get(F_ARCH), device=dev)
@@ -4074,13 +4171,48 @@ def training_path(dev) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     rec["lm_cpu_parity"] = lm_train_cpu_parity(dev)
 
+    lm = {}
     for key, arch, (layers, shape, steps) in (("llama", "llama3.2-3b", G_LLAMA),
                                               ("moonshot", "moonshot-v1-16b-a3b", G_MOONSHOT),
                                               ("mamba2", "mamba2-780m", G_MAMBA2)):
         full = get(arch)
         cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
-        run(key, cfg, lm_train_batch(cfg, shape, dev), steps, lm_train_per_step(cfg),
-            of_layers=full.num_layers)
+        lm[key] = (cfg, lm_train_batch(cfg, shape, dev), steps)
+        rec[key] = run(key, cfg, *lm[key][1:], lm_train_per_step(cfg),
+                       of_layers=full.num_layers)
+
+    # (f) the same runs under the other remat values, unprofiled
+    sweep = {"whisper": (get(F_ARCH), whisper, G_WHISPER[2], whisper_train_per_step),
+             "llama": (*lm["llama"], lm_train_per_step),
+             "mamba2": (*lm["mamba2"], lm_train_per_step)}
+    remat = {}
+    for key, values in G_REMAT.items():
+        cfg, batch, steps, per_step = sweep[key]
+        runs = {"full": rec[key]}
+        for value in values:
+            c = dataclasses.replace(cfg, remat=value)
+            runs[value] = run(key, c, batch, steps, per_step(c), profile=False)
+        first = {v: r["losses"][0] for v, r in runs.items()}
+        assert len(set(first.values())) == 1, (key, first)
+        remat[key] = {v: {k: r[k] for k in ("remat", "ms_per_step", "tokens_per_s",
+                                             "peak_mem_gb", "losses", "launches",
+                                             "first_step_s", "phase_s")}
+                      for v, r in runs.items()}
+        remat[key]["full_over_none_ms"] = (runs["full"]["ms_per_step"]
+                                           / runs["none"]["ms_per_step"])
+    for key in ("whisper", "mamba2"):
+        peaks = {v: remat[key][v]["peak_mem_gb"] for v in ("none", "full")}
+        assert peaks["full"] < peaks["none"], (key, peaks)
+    del sweep, whisper
+    remat["grads"] = remat_grads(dev)
+    # (h) a run that only remat fits
+    full = get("mamba2-780m")
+    shape, steps = G_REMAT_ONLY
+    assert full.remat == "full"
+    remat["mamba2_8x1024"] = run("mamba2_8x1024", full, lm_train_batch(full, shape, dev),
+                                 steps, lm_train_per_step(full), profile=False)
+    rec["remat"] = remat
+    del lm
 
     rec["train_cli"], counts = train_cli(dev)
     total = {k: total[k] + counts[k] for k in total}
@@ -4165,8 +4297,9 @@ def dryrun_cli() -> dict:
 def flop_shares(llama_step_ms: float, llama_prefill: dict) -> dict:
     """Phase H (b): launch/costmodel.py's FLOPs of two steps timed above,
     over their measured seconds times the card's bf16 peak.  The training
-    step's shape is G_LLAMA's, the prefill's its phase E record's (its
-    layers, tokens [b, s] and patches)."""
+    step's shape is G_LLAMA's, at the config's remat="full" (the count adds
+    the backward's recomputed forward, as that step ran it); the prefill's
+    its phase E record's (its layers, tokens [b, s] and patches)."""
     from repro_torch.configs import get
     from repro_torch.launch.costmodel import cell_flops
     from repro_torch.launch.mesh import H100
@@ -4184,9 +4317,10 @@ def flop_shares(llama_step_ms: float, llama_prefill: dict) -> dict:
     for key, (cfg, shape, ms) in steps.items():
         flops = cell_flops(cfg, shape)["total"]
         share = flops / (ms * 1e-3 * H100.peak_flops)
-        rec[key] = {"layers": cfg.num_layers, "shape": shape, "flops": flops,
-                    "measured_ms": ms, "share_of_bf16_peak": share}
-        print(f"flop_share {key}: {flops:.4e} FLOPs in {ms:.3f} ms = {share:.4f} of "
+        rec[key] = {"layers": cfg.num_layers, "shape": shape, "remat": cfg.remat,
+                    "flops": flops, "measured_ms": ms, "share_of_bf16_peak": share}
+        remat = f", remat={cfg.remat}" if shape["kind"] == "train" else ""
+        print(f"flop_share {key}: {flops:.4e} FLOPs{remat} in {ms:.3f} ms = {share:.4f} of "
               f"{H100.peak_flops:.4e} FLOP/s ({limit})")
         assert 0 < share <= H_SHARE_MAX, (key, share)
     return rec
@@ -4652,6 +4786,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rec, counts, bwd = training_path(dev)
     rec["phase_s"] = time.perf_counter() - t0
+    print("remat", json.dumps(rec.pop("remat")))
     print("training", json.dumps(rec))
     for k in kernels:
         k["launches"] += counts.get(k["name"], 0)

@@ -6,9 +6,11 @@ the VLM's patch frontend; whisper's encoder and learned decoder positions;
 the trainer's peak learning rate and optimizer), with torch dtypes behind
 ``cdtype`` and ``pdtype``.  ``moe_impl`` is gone: its three values compute one function
 in the JAX package, and the port has one realization (the tensor's device
-picks plain PyTorch or the CUDA kernels).  So are ``remat`` and the
-attention chunk sizes: the port keeps no activation checkpointing, and its
-attention is one kernel.  ``SHAPES`` holds the dry run's four cell shapes.
+picks plain PyTorch or the CUDA kernels).  So are the attention chunk
+sizes: the port's attention is one kernel.  ``remat`` is JAX's activation
+checkpointing of a training forward (``none``, ``full``, ``dots``; ``full``
+by default), which ``transformer.forward`` and whisper's ``encode`` and
+``decode_train`` apply.  ``SHAPES`` holds the dry run's four cell shapes.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +81,7 @@ class ArchConfig:
     # training
     max_lr: float = 3e-4
     optimizer: str = "adamw"          # adamw|adamw8bit
+    remat: str = "full"               # none|full|dots
     # which serve shapes make sense (sub-quadratic archs only for long ctx)
     supports_long_context: bool = False
 
@@ -87,6 +91,8 @@ class ArchConfig:
         if self.num_layers % len(self.block_pattern):
             raise ValueError(f"{self.name}: layers {self.num_layers} not a "
                              f"multiple of the period {len(self.block_pattern)}")
+        if self.remat not in REMAT:
+            raise ValueError(f"{self.name}: remat {self.remat!r} not one of {REMAT}")
 
     @property
     def period(self) -> int:

@@ -2,15 +2,13 @@
 the counterpart of ``repro/launch/costmodel.py``.
 
 The numerators are exact matmul counts derived from the model math (the
-standard way frameworks compute MFU); nothing here is measured.  Two
-deliberate differences count the port's own work:
-
-- the port keeps no activation checkpointing, so a training step is the
-  forward x 3 (backward = 2x the forward's matmuls) + ~10 FLOPs a
-  parameter for the optimizer, where JAX's remat="full" adds a forward;
-- the MoE pack and unpack are copies (``onehot_dispatch`` /
-  ``onehot_combine``), not one-hot einsums: 0 FLOPs, JAX's
-  moe_impl="sort" branch.
+standard way frameworks compute MFU); nothing here is measured.  A
+training step is the forward x 3 (backward = 2x the forward's matmuls),
+one forward more under remat="full" (the backward recomputes each
+period), + ~10 FLOPs a parameter for the optimizer, as in JAX.  One
+deliberate difference counts the port's own work: the MoE pack and unpack
+are copies (``onehot_dispatch`` / ``onehot_combine``), not one-hot
+einsums: 0 FLOPs, JAX's moe_impl="sort" branch.
 
 Conventions: multiply-add = 2 FLOPs; `ctx` = average attended context.
 A cell's shape is a name of SHAPES or such a dict, so a measured step's
@@ -136,7 +134,9 @@ def _whisper_forward_flops(cfg: ArchConfig, batch: int, seq: int,
 
 def cell_flops(cfg: ArchConfig, shape) -> Dict[str, float]:
     """Global FLOPs for one cell: {'forward', 'total'} (total folds in
-    backward x2 and ~10 FLOPs/param optimizer; no remat)."""
+    backward x2, remat="full"'s recomputed forward x1, and ~10 FLOPs/param
+    optimizer; remat="dots" recomputes all but the products, which the
+    count leaves out, as JAX's does)."""
     spec = shape_spec(shape)
     seq, gb, kind = spec["seq_len"], spec["global_batch"], spec["kind"]
     if cfg.family == "encdec":
@@ -148,7 +148,8 @@ def cell_flops(cfg: ArchConfig, shape) -> Dict[str, float]:
     if kind != "train":
         return {"forward": fwd, "total": fwd}
     from repro_torch.models.zoo import param_count
-    return {"forward": fwd, "total": fwd * 3.0 + 10.0 * param_count(cfg)}
+    remat = 1.0 if cfg.remat == "full" else 0.0
+    return {"forward": fwd, "total": fwd * (3.0 + remat) + 10.0 * param_count(cfg)}
 
 
 # ------------------------------------------------------------- HBM traffic
@@ -159,8 +160,8 @@ def cell_bytes(cfg: ArchConfig, shape) -> Dict[str, float]:
     decode : params (serve dtype) + full cache read + token write
     prefill: params + activation r/w (c_act*d bytes/tok/layer) + logits
     train  : ~9 param-size passes (fwd/bwd/remat reads, grad write, opt
-             m/v r+w, param r+w) + 3 activation passes + fp32 logits;
-             JAX's estimate kept whole, so one remat read too many here
+             m/v r+w, param r+w) + 3 activation passes + fp32 logits,
+             JAX's estimate as it is (one remat read under every ``remat``)
 
     The decode cache is sized from the port's own ``init_cache`` on meta.
     """

@@ -10,12 +10,22 @@ It covers the mixer kinds ``attn``, ``attn_local``, ``attn_nocausal``,
 VLM families, the last with its patch embeddings prepended to the tokens'
 (``patch_proj``).  The encoder-decoder family (whisper) is in
 ``whisper.py``.
+
+Activation checkpointing (``cfg.remat``) wraps each period of a forward
+that autograd records, as the JAX version's ``jax.checkpoint`` does:
+``full`` keeps each period's input and recomputes its forward in the
+backward; ``dots`` also keeps the outputs of products with no batch dims
+(``DOTS``); ``none`` keeps everything.  A forward that is not recorded
+(prefill, serving) runs as it would under ``none``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -24,7 +34,7 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.sharding.policies import P
-from repro_torch.tree import tree_map, tree_unzip
+from repro_torch.tree import tree_leaves, tree_map, tree_unzip
 
 ATTN_KINDS = ("attn", "attn_local", "attn_nocausal")
 MIXER_KINDS = (*ATTN_KINDS, "mla", "mamba")
@@ -210,11 +220,63 @@ def _logits(cfg: ArchConfig, params, x):
     return L.softcap(logits, cfg.logit_softcap)
 
 
+def _period_forward(cfg: ArchConfig, pp, x):
+    """One period's layers: x [B, S, D] -> (x, the period's load-balance
+    loss, or None without an MoE layer)."""
+    lb = None
+    for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
+        h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
+        x = x + _apply_mixer(cfg, mk, pp[f"{j}.mixer"], h)
+        if fk == "none":
+            continue
+        h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
+        y, aux = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
+        x = x + y
+        if aux is not None:
+            lb = aux["lb_loss"] if lb is None else lb + aux["lb_loss"]
+    return x, lb
+
+
+# the products with no batch dims, whose outputs remat="dots" keeps (JAX's
+# dots_with_no_batch_dims_saveable): x @ w is an mm (or addmm), and an
+# einsum with no batch dims (the attention and MLA projections) a bmm over
+# a batch of one
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, func, *args, **kwargs):
+    del ctx, kwargs
+    if func in DOTS or (func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def recorded(*trees) -> bool:
+    """Whether autograd records a forward of these inputs (tensors or
+    params trees): grad mode is on and one of their leaves requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(trees))
+
+
+def remat(body, mode: str, record: bool):
+    """``body`` under activation checkpointing ``mode`` (none|full|dots)
+    where ``record``, else ``body`` itself.  Non-reentrant checkpointing;
+    the forward draws no random numbers, so no RNG state is kept."""
+    if mode == "none" or not record:
+        return body
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _keep_dots)
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
 def forward(cfg: ArchConfig, params, tokens, *, patches=None):
     """tokens [B, S] (+ patches [B, P, patch_embed_dim] for the VLM) ->
     (logits [B, P + S, V], {"lb_loss"}): the full causal forward of
-    prefill.  The VLM's projected patches come first in the sequence, and
-    the logits keep their positions."""
+    prefill and training.  The VLM's projected patches come first in the
+    sequence, and the logits keep their positions.  Each period runs
+    under ``cfg.remat`` when autograd records the forward."""
     _check_kinds(cfg)
     x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
     if cfg.num_patches:
@@ -222,18 +284,13 @@ def forward(cfg: ArchConfig, params, tokens, *, patches=None):
             raise ValueError(f"{cfg.name}: the forward takes patches "
                              f"{(tokens.shape[0], cfg.num_patches, cfg.patch_embed_dim)}")
         x = torch.cat([L.dense(params["patch_proj"], patches, cfg.cdtype), x], dim=1)
+    body = remat(functools.partial(_period_forward, cfg), cfg.remat,
+                 recorded(x, params["blocks"]))
     lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for pp in unstack(params["blocks"], cfg.num_periods):
-        for j, (mk, fk) in enumerate(zip(cfg.block_pattern, cfg.ffn_pattern)):
-            h = L.rmsnorm(pp[f"{j}.norm1"], x, cfg.norm_eps)
-            x = x + _apply_mixer(cfg, mk, pp[f"{j}.mixer"], h)
-            if fk == "none":
-                continue
-            h = L.rmsnorm(pp[f"{j}.norm2"], x, cfg.norm_eps)
-            y, aux = _apply_ffn(cfg, fk, pp[f"{j}.ffn"], h)
-            x = x + y
-            if aux is not None:
-                lb_loss = lb_loss + aux["lb_loss"]
+        x, lb = body(pp, x)
+        if lb is not None:
+            lb_loss = lb_loss + lb
     return _logits(cfg, params, x), {"lb_loss": lb_loss}
 
 

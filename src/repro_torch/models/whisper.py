@@ -14,7 +14,10 @@ The parameter layout is the JAX package's: every leaf of ``encoder`` and
 over layers takes the place of ``lax.scan``.  Every attention of the
 encoder and of the teacher-forced decoder goes through
 ``dispatch.flash_attention`` (the cross-attention with Sq != Sk).
-``decode_step`` writes the self-attention cache in place.
+``decode_step`` writes the self-attention cache in place.  Under a
+recorded forward, ``cfg.remat`` other than ``none`` checkpoints each
+encoder and decoder layer whole: the JAX version checkpoints ``dots`` as
+``full`` here too.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _stack, _stacked, take
+from repro_torch.models.transformer import _stack, _stacked, recorded, remat, take, unstack
 from repro_torch.sharding.policies import P
 
 
@@ -108,17 +111,25 @@ def _attend(cfg: ArchConfig, pp, x, causal: bool, kv_override=None):
                        compute_dtype=cfg.cdtype, kv_override=kv_override)
 
 
+def _layer_remat(cfg: ArchConfig) -> str:
+    return "none" if cfg.remat == "none" else "full"
+
+
 def encode(cfg: ArchConfig, params, frames):
     """frames [B, F, D] (precomputed stub embeddings) -> memory [B, F, D]."""
     cd = cfg.cdtype
     f = frames.shape[1]
     x = frames.to(cd) + _sinusoid(f, cfg.d_model, frames.device).to(cd)[None]
-    for i in range(cfg.encoder_layers):
-        pp = take(params["encoder"], i)
+
+    def layer(pp, x):
         h = L.layernorm(pp["norm1"], x, cfg.norm_eps)
         x = x + _attend(cfg, pp["attn"], h, causal=False)
         h = L.layernorm(pp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(pp["ffn"], h, act="gelu", compute_dtype=cd)
+        return x + L.mlp(pp["ffn"], h, act="gelu", compute_dtype=cd)
+
+    layer = remat(layer, _layer_remat(cfg), recorded(x, params["encoder"]))
+    for pp in unstack(params["encoder"], cfg.encoder_layers):
+        x = layer(pp, x)
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -129,15 +140,19 @@ def decode_train(cfg: ArchConfig, params, tokens, memory):
     s = tokens.shape[1]
     mem_pos = torch.arange(memory.shape[1], dtype=torch.int32, device=memory.device)
     x = L.embed_lookup(params["embed"], tokens, cd) + params["pos_dec"][:s].to(cd)[None]
-    for i in range(cfg.num_layers):
-        pp = take(params["decoder"], i)
+
+    def layer(pp, x, memory):
         h = L.layernorm(pp["norm1"], x, cfg.norm_eps)
         x = x + _attend(cfg, pp["self_attn"], h, causal=True)
         h = L.layernorm(pp["norm_x"], x, cfg.norm_eps)
         x = x + _attend(cfg, pp["cross_attn"], h, causal=False,
                         kv_override=(memory, mem_pos))
         h = L.layernorm(pp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(pp["ffn"], h, act="gelu", compute_dtype=cd)
+        return x + L.mlp(pp["ffn"], h, act="gelu", compute_dtype=cd)
+
+    layer = remat(layer, _layer_remat(cfg), recorded(x, memory, params["decoder"]))
+    for pp in unstack(params["decoder"], cfg.num_layers):
+        x = layer(pp, x, memory)
     x = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cd, cfg.vocab)
 

@@ -3,8 +3,8 @@ multi-tenant analytics serving over the lane-batched Ditto executor.
 
 The PyTorch counterpart of ``repro/serve/engine.py``.  The LM half:
   * ``prefill_cache`` (decode steps over the prompt; a Python loop where
-    the JAX version scans) and ``decode_tokens`` (one greedy token for the
-    whole batch);
+    the JAX version scans) and ``decode_tokens`` (one token for the whole
+    batch: greedy, or drawn at a temperature from a ``torch.Generator``);
   * ``DecodeEngine``, a continuous-batching slot manager: requests join
     free slots mid-flight and finished slots free at once.  Per-slot
     lengths live in a [B] cache_len vector that the attention masks read.
@@ -50,12 +50,21 @@ def prefill_cache(model: Model, params, prompts: torch.Tensor, cache,
     return logits[:, 0], cache
 
 
-def decode_tokens(model: Model, params, tokens, cache, cache_len):
-    """One greedy decode step for the batch: tokens [B] -> (next [B] int32,
-    cache).  (The JAX version's temperature sampling has no caller.)"""
+def decode_tokens(model: Model, params, tokens, cache, cache_len,
+                  temperature: float = 0.0, gen: Optional[torch.Generator] = None):
+    """One decode step for the batch: tokens [B] -> (next [B] int32, cache).
+    Greedy unless ``temperature`` > 0 and a generator ``gen`` (on the
+    logits' device) is given: then each next token is drawn from
+    softmax(logits / temperature), in float32."""
     logits, cache = model.decode_fn(
         params, {"tokens": tokens[:, None], "cache": cache, "cache_len": cache_len})
-    return torch.argmax(logits[:, 0], dim=-1).to(torch.int32), cache
+    lg = logits[:, 0]
+    if temperature > 0.0 and gen is not None:
+        probs = torch.softmax(lg.float() / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+    else:
+        nxt = torch.argmax(lg, dim=-1)
+    return nxt.to(torch.int32), cache
 
 
 def greedy_generate(model: Model, params, prompts: torch.Tensor, *,

@@ -173,8 +173,7 @@ ALLOWED: dict[str, str] = {
         ("models/mla.py", "mla_params"), ("models/moe.py", "moe_params"),
         ("models/transformer.py", "period_params"), ("models/transformer.py", "init_params"),
         ("models/whisper.py", "init_params"), ("train/state.py", "init_train_state"))},
-    "serve/engine.py::decode_tokens(key)": "greedy decode only: no sampling key",
-    "serve/engine.py::decode_tokens(temperature)": "greedy decode only: no temperature",
+    "serve/engine.py::decode_tokens(key)": GENERATOR,
     "models/moe.py::moe_apply(router_noise_key)":
         "no router noise: the router is deterministic (its JAX default, None)",
     "models/moe.py::moe_apply(impl)": "one realization of the pack and unpack (the "
@@ -192,7 +191,6 @@ ALLOWED: dict[str, str] = {
     "configs/base.py::ArchConfig.kv_chunk": CHUNKED,
     "configs/base.py::ArchConfig.moe_impl": "one realization of the MoE pack and "
                                             "unpack, so no impl switch",
-    "configs/base.py::ArchConfig.remat": "no activation checkpointing in the port",
     # GSPMD and XLA
     "models/layers.py::anchor": GSPMD,
     "models/layers.py::mesh_axes": GSPMD,

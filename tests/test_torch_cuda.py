@@ -1594,13 +1594,13 @@ def test_moe_functions_gradcheck(cuda_device, with_gate):
                                   "jamba-1.5-large-398b"])
 def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     """The loss and every gradient of a REDUCED config in float32 (TF32
-    off) on the card, through the flash forward and backward kernels (once
-    an attention or MLA layer a call each) and the MoE pack and unpack (2
-    packs and 3 unpacks a MoE layer, forward and backward), against the
-    CPU's plain path on the same weights and batch: the loss within rtol
-    1e-5, each gradient leaf within atol = 1e-4 * (1 + its max) (sums in
-    another order).  The MoE, SSM and hybrid configs take 2 x 64 tokens (two
-    dispatch groups, four SSD chunks), the others 2 x 16."""
+    off) on the card, under its default remat="full", through the flash
+    forward and backward kernels and the MoE pack and unpack (per layer
+    ``_train_launches``), against the CPU's plain path on the same weights
+    and batch: the loss within rtol 1e-5, each gradient leaf within atol =
+    1e-4 * (1 + its max) (sums in another order).  The MoE, SSM and hybrid
+    configs take 2 x 64 tokens (two dispatch groups, four SSD chunks), the
+    others 2 x 16."""
     from repro_torch.configs import get_reduced
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import zoo
@@ -1620,11 +1620,7 @@ def test_loss_grads_on_card_match_cpu(cuda_device, arch):
     if cfg.num_patches:
         batch["patches"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.num_patches, cfg.patch_embed_dim)).astype(np.float32)) * 0.02
-    if cfg.family == "encdec":
-        attn, moe = cfg.encoder_layers + 2 * cfg.num_layers, 0
-    else:
-        attn = sum(k != "mamba" for k in cfg.block_pattern) * cfg.num_periods
-        moe = sum(k == "moe" for k in cfg.ffn_pattern) * cfg.num_periods
+    assert cfg.remat == "full"
     kernels = (flash_attention, flash_attention_bwd, onehot_dispatch, onehot_combine)
     out = []
     for where in (cuda_device, torch.device("cpu")):
@@ -1637,11 +1633,67 @@ def test_loss_grads_on_card_match_cpu(cuda_device, arch):
         torch.cuda.synchronize()
         if where.type == "cuda":
             assert [k.launches - n for k, n in zip(kernels, before)] == \
-                [attn, attn, 2 * moe, 3 * moe]
+                _train_launches(cfg)
         out.append((float(loss.detach()), [t.grad.cpu() for t in tree_leaves(leaves)]))
     (l_gpu, g_gpu), (l_cpu, g_cpu) = out
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
     for g, w in zip(g_gpu, g_cpu):
+        assert bool(((g - w).abs() <= 1e-4 * (1 + w.abs().max())).all())
+
+
+def _train_launches(cfg) -> list:
+    """Launches of one loss and backward of ``cfg``: [flash forward, flash
+    backward, MoE pack, MoE unpack].  An attention (or MLA) layer runs the
+    flash forward once and its backward once; a MoE layer packs once and
+    unpacks once, and its backward unpacks (the pack's transpose), packs
+    and unpacks (the unpack's dpacked and dgate's rows).  Under remat other
+    than "none" the backward recomputes every layer's forward first (each
+    period's last saved tensor comes after its last kernel, so the early
+    stop skips none): one more flash forward, pack and unpack a layer."""
+    if cfg.family == "encdec":
+        attn, moe = cfg.encoder_layers + 2 * cfg.num_layers, 0
+    else:
+        attn = sum(k != "mamba" for k in cfg.block_pattern) * cfg.num_periods
+        moe = sum(k == "moe" for k in cfg.ffn_pattern) * cfg.num_periods
+    fwd = 1 if cfg.remat == "none" else 2
+    return [fwd * attn, attn, (fwd + 1) * moe, (fwd + 2) * moe]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"])
+def test_remat_grads_on_card_match_none(cuda_device, arch, remat):
+    """The card's loss and gradients of a REDUCED MoE config (float32, TF32
+    off, 2 x 64 tokens) under ``remat`` against the card's under "none" on
+    the same weights and batch: the flash and MoE kernels run again in the
+    recompute, and the MoE routing must recompute to the same slots.  The
+    loss equal, each gradient leaf within atol = 1e-4 * (1 + its max), and
+    each kernel launched as ``_train_launches`` counts."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_reduced(arch)
+    params = zoo.build(base, device=cuda_device).init_params(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (2, 65)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1].to(cuda_device), "labels": toks[:, 1:].to(cuda_device)}
+    kernels = (flash_attention, flash_attention_bwd, onehot_dispatch, onehot_combine)
+    out = {}
+    for r in ("none", remat):
+        cfg = dataclasses.replace(base, remat=r)
+        leaves = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+        before = [k.launches for k in kernels]
+        loss, _ = zoo.build(cfg, device=cuda_device).loss_fn(leaves, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(kernels, before)] == _train_launches(cfg)
+        out[r] = (loss.detach().cpu(), [t.grad.cpu() for t in tree_leaves(leaves)])
+    assert torch.equal(out[remat][0], out["none"][0])
+    for g, w in zip(out[remat][1], out["none"][1]):
         assert bool(((g - w).abs() <= 1e-4 * (1 + w.abs().max())).all())
 
 

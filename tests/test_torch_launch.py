@@ -295,20 +295,38 @@ def test_param_counts_model_flops_and_skips_equal_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cost_model_equals_jax_without_remat_and_onehot(arch, shape):
     """cell_flops against JAX's with moe_impl="sort" (the pack and unpack
-    are copies) and remat="none"; cell_bytes exact."""
+    are copies) and remat="none" on both sides; cell_bytes exact."""
     ref = dataclasses.replace(jcfg(arch), moe_impl="sort", remat="none")
-    got, want = CM.cell_flops(pcfg(arch), shape), JCM.cell_flops(ref, shape)
+    cfg = dataclasses.replace(pcfg(arch), remat="none")
+    got, want = CM.cell_flops(cfg, shape), JCM.cell_flops(ref, shape)
     for k in ("forward", "total"):
         assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0)
-    assert CM.cell_bytes(pcfg(arch), shape) == JCM.cell_bytes(jcfg(arch), shape)
+    assert CM.cell_bytes(cfg, shape) == JCM.cell_bytes(jcfg(arch), shape)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cost_model_equals_jax_with_remat(arch, shape, remat):
+    """cell_flops against JAX's at the same remat (moe_impl="sort"): "full"
+    adds one forward to a training step, "dots" none; cell_bytes exact."""
+    ref = dataclasses.replace(jcfg(arch), moe_impl="sort", remat=remat)
+    cfg = dataclasses.replace(pcfg(arch), remat=remat)
+    got, want = CM.cell_flops(cfg, shape), JCM.cell_flops(ref, shape)
+    for k in ("forward", "total"):
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0)
+    assert CM.cell_bytes(cfg, shape) == JCM.cell_bytes(ref, shape)
 
 
 def test_cost_model_takes_a_measured_shape():
     cfg = dataclasses.replace(pcfgs.get("llama3.2-3b"), num_layers=4)
     spec = dict(kind="train", seq_len=1024, global_batch=2)
     fwd = CM.forward_flops_per_token(cfg, "train", 1024) * 2048
+    assert cfg.remat == "full"            # the backward recomputes one forward
     assert CM.cell_flops(cfg, spec) == {"forward": fwd,
-                                        "total": 3 * fwd + 10 * Z.param_count(cfg)}
+                                        "total": 4 * fwd + 10 * Z.param_count(cfg)}
+    assert CM.cell_flops(dataclasses.replace(cfg, remat="none"), spec)["total"] == \
+        3 * fwd + 10 * Z.param_count(cfg)
 
 
 # ------------------------------------------- collective arithmetic, roofline
