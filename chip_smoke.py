@@ -70,12 +70,21 @@ Phases (any failure exits non-zero before the result lines):
      ExecStats field, to its stream alone through make_executor; 64 chunks
      of the online batch identical on card and CPU; pad lanes left as
      init_state made them; each PE kernel once per batched chunk; the
-     Prometheus text through parse_prometheus and the trace's
-     executor.build / stream.flush / stream.batch spans.  Prints flush
+     Prometheus text through parse_prometheus and the trace's stream spans
+     (stream.flush / stream.batch / stream.stack / executor.load /
+     executor.step / executor.route / executor.pe_update /
+     executor.schedule / executor.finish / stream.drain / stream.collect;
+     no executor.build).  Prints flush
      seconds and tuples/s per engine, ms per batched chunk at L = 1, 2, 4
      and 8 lanes, a profile of 16 batched chunks at L = 8, the flattened PE
      launch against L per-lane launches (in turns), and the build monitor's
-     delta over the phase.
+     delta over the phase.  (b) a full HISTO skew-sweep flush (six
+     13 * 2^20-tuple streams, alpha 0-3, M = 16, X = 14, chunks of 4096)
+     on two seeds, each on engines without spans, with the tracer off and
+     on, in turns: every result equal to the oracle; prints the
+     stream_spans line (flush seconds, the tracer's on- and off-cost, each
+     stage's us a chunk step from the span ring, and the steps' span cost
+     in turns of 8 steps, which the host's drift between flushes hides).
  12. SessionEngine at the paper's scale and shape (M = 16, X = 14, chunks
      of 4096) on the default obs bundle, through a seeded op script of
      ragged appends (0-4 chunks plus a tail), queries in both scopes,
@@ -355,6 +364,13 @@ SERVICE_TENANTS, SERVICE_ASYNC_TENANTS, SERVICE_THREADS = 32, 8, 8   # phase 13
 SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**23, 2**19   # through the socket; 4 MB frames
 SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
 SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
+STREAM_SPANS = ("stream.flush", "stream.batch", "stream.stack", "executor.load",
+                "executor.step", "executor.route", "executor.pe_update",
+                "executor.schedule", "executor.finish", "stream.drain", "stream.collect")
+SWEEP_M, SWEEP_X, SWEEP_CHUNK = 16, 14, 4096   # phase 11 (b): the paper's HISTO skew sweep
+SWEEP_BINS, SWEEP_DOMAIN, SWEEP_TUPLES = 512, 1 << 20, 13 * 2**20   # tuples a stream
+SWEEP_ALPHAS = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0)   # one stream (lane) each
+SWEEP_SEEDS = (2147489104, 2147489105)
 MESH_PE_SHARDS, MESH_PRI, MESH_SEC = 8, 6, 2   # phase 14 (a): examples/distributed_ditto.py
 MESH_BINS, MESH_DOMAIN, MESH_CHUNK, MESH_CHUNKS, MESH_CAP = 384, 1 << 20, 6144, 16, 256
 MESH_LONG_TUPLES = 2**21                     # (a): the alpha-2 stream at X = 2
@@ -1010,7 +1026,7 @@ def stream_path(dev, stream_3) -> tuple[dict, dict]:
     trace.parent.mkdir(exist_ok=True)
     o.tracer.write(trace)
     spans = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"executor.build", "stream.flush", "stream.batch"} <= spans, spans
+    assert set(STREAM_SPANS) <= spans and "executor.build" not in spans, spans
 
     # ms per batched chunk at L lanes of the alpha-3 stream, and per chunk
     # of the single-stream executor on lane 0's chunks, in turns
@@ -1058,6 +1074,148 @@ def stream_path(dev, stream_3) -> tuple[dict, dict]:
            "profile_l8": profile, "flattened_vs_per_lane": flat_vs,
            "prometheus_samples": len(samples), "trace_spans": sorted(spans)}
     return rec, launches
+
+
+def span_us(fn, n: int = 100_000) -> float:
+    """Host us a call of ``fn``, over ``n`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def step_block_turns(spec, streams, chunk: int, m: int, x: int, dev, on,
+                     block: int = 8, passes: int = 2) -> dict:
+    """The chunk step's own span cost at the stream's full width: every
+    step of ``streams`` (lanes), ``passes`` times, in blocks of ``block``
+    steps, the blocks
+    taking turns in a rotating order between two executors without spans
+    (bare, and bare2 as the control of the method), and one whose bundle
+    ``on`` is switched off (off) and on (on).  Turns this short keep the
+    host's drift out of the comparison: returns each variant's median
+    block time and the median over rounds of its block time against
+    bare's, in %."""
+    from repro_torch.core.executor import make_resumable_executor, stack_states
+    whole = len(streams[0]) // chunk * chunk
+    tuples = torch.as_tensor(np.stack([s[:whole] for s in streams])).to(dev) \
+        .view(len(streams), -1, chunk, 2)
+    steps = {"bare": make_resumable_executor(spec, m, x, chunk, device=dev).step,
+             "bare2": make_resumable_executor(spec, m, x, chunk, device=dev).step}
+    steps["off"] = steps["on"] = make_resumable_executor(spec, m, x, chunk, device=dev,
+                                                         obs=on).step
+    order = list(steps)
+    states = stack_states(make_resumable_executor(spec, m, x, chunk, device=dev)
+                          .init_state(), len(streams))
+    rounds = []
+    per_pass = tuples.shape[1] // (len(order) * block)
+    torch.cuda.synchronize()
+    for r in range(passes * per_pass):
+        times = {}
+        for i in range(len(order)):
+            name = order[(r + i) % len(order)]
+            on.enabled = name == "on"
+            k = (len(order) * (r % per_pass) + i) * block
+            t0 = time.perf_counter()
+            for j in range(k, k + block):
+                states, _ = steps[name](states, tuples[:, j])
+            times[name] = time.perf_counter() - t0
+        rounds.append(times)
+    on.enabled = True
+    on.tracer.clear()
+    del tuples, states
+    return {"block_steps": block, "rounds": len(rounds),
+            "median_block_s": {n: float(np.median([t[n] for t in rounds])) for n in order},
+            "cost_pct": {n: 100 * float(np.median([t[n] / t["bare"] - 1 for t in rounds]))
+                         for n in order[1:]}}
+
+
+def sweep_streams(seed: int) -> list:
+    """Phase 11 (b)'s six streams of SWEEP_TUPLES tuples, one a Zipf alpha
+    of SWEEP_ALPHAS, drawn on the host from ``seed``."""
+    from repro_torch.data.zipf import zipf_tuples
+    # stream t draws its keys from seed 2 * (16 * seed + t) and its values
+    # from the next one, so no two streams share a generator
+    return [zipf_tuples(SWEEP_TUPLES, SWEEP_DOMAIN, alpha, seed=2 * (16 * seed + t))
+            for t, alpha in enumerate(SWEEP_ALPHAS)]
+
+
+def stream_spans_path(dev) -> dict:
+    """Phase 11 (b): a full HISTO skew-sweep flush (``sweep_streams``: six
+    13 * 2^20-tuple streams at Zipf alpha 0-3, M = 16, X = 14, chunks of
+    4096, six lanes) on three engines in turns (bare, off, on, on, off,
+    bare) on each of SWEEP_SEEDS: ``bare`` enters no span (an executor
+    without obs=), ``off`` has its tracer off, ``on`` on with no profiler.
+    Prints each flush's seconds, the on- and off-cost against bare, each
+    stage's us a chunk step from the on engine's span ring, the host cost
+    of one span on and off, and the steps' span cost in short turns
+    (``step_block_turns``, first seed).  Every result of the on flushes
+    equal to the histogram oracle."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.apps import histo
+    from repro_torch.core.executor import make_multistream_executor
+    from repro_torch.serve import StreamEngine
+
+    bins, domain, m, x, chunk = SWEEP_BINS, SWEEP_DOMAIN, SWEEP_M, SWEEP_X, SWEEP_CHUNK
+    spec = histo.make_spec(bins, domain, m)
+    steps = -(-SWEEP_TUPLES // chunk)
+    on, off = obs_lib.Observability(), obs_lib.Observability(enabled=False)
+    engines = {}
+    for name, o in (("bare", False), ("off", off), ("on", on)):
+        engines[name] = StreamEngine(spec, num_pri=m, num_sec=x, chunk_size=chunk,
+                                     max_streams=len(SWEEP_ALPHAS), device=dev, obs=o)
+    engines["bare"]._run_streams = make_multistream_executor(spec, m, x, chunk, device=dev)
+    # the host's cost of one span, on and off, with no profiler recording
+    off_us = span_us(lambda: off.span("x").__enter__().__exit__(None, None, None))
+    on.tracer.clear()
+    on_us = span_us(lambda: on.span("x").__enter__().__exit__(None, None, None))
+    on.tracer.clear()
+    out = {"card": card_limit(), "span_on_us": on_us, "span_off_us": off_us,
+           "chunk_steps": steps, "seeds": {}}
+    for seed in SWEEP_SEEDS:
+        streams = sweep_streams(seed)
+        for eng in engines.values():          # warm the step's shape
+            for s in streams:
+                eng.submit(s[:2 * chunk])
+            eng.flush()
+        on.tracer.clear()
+        if seed == SWEEP_SEEDS[0]:
+            out["step_turns"] = step_block_turns(spec, streams, chunk, m, x, dev, on)
+        flush_s = {k: [] for k in engines}
+        stage_us, n_events = [], 0
+        for name in ("bare", "off", "on", "on", "off", "bare"):
+            eng = engines[name]
+            rids = [eng.submit(s) for s in streams]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.flush()
+            flush_s[name].append(time.perf_counter() - t0)
+            if name != "on":
+                continue
+            for rid, s in zip(rids, streams):
+                assert np.array_equal(res[rid][0], histo.oracle(s[:, 0], bins, domain, m)), \
+                    f"seed {seed}: a stream's histogram differs from the oracle"
+            ev = on.tracer.events()
+            on.tracer.clear()
+            n_events = len(ev)
+            dur = {n: sum(e["dur"] for e in ev if e["name"] == n) for n in STREAM_SPANS}
+            assert sum(e["name"] == "executor.step" for e in ev) == steps
+            per = {n: dur[n] / steps for n in STREAM_SPANS}
+            per["engine_self"] = (dur["stream.batch"] - dur["executor.step"]
+                                  - dur["stream.drain"]) / steps
+            stage_us.append(per)
+        del streams
+        med = {k: float(np.median(v)) for k, v in flush_s.items()}
+        out["seeds"][seed] = {
+            "flush_s": flush_s,
+            "on_cost_pct": 100 * (med["on"] / med["bare"] - 1),
+            "off_cost_pct": 100 * (med["off"] / med["bare"] - 1),
+            # the spans' own cost, from the ring's count and the one-span cost
+            "on_cost_est_pct": 100 * n_events * on_us * 1e-6 / med["bare"],
+            "off_cost_est_pct": 100 * n_events * off_us * 1e-6 / med["bare"],
+            "us_per_step": {n: float(np.mean([p[n] for p in stage_us]))
+                            for n in stage_us[0]},
+            "spans_per_flush": n_events}
+    return out
 
 
 # ---------------------------------------------------------------- phase 12
@@ -4673,6 +4831,11 @@ def main() -> int:
         launches[k] += c
     rec["phase_s"] = time.perf_counter() - t0
     print("stream", json.dumps(rec))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = stream_spans_path(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print("stream_spans", json.dumps(rec))
     torch.cuda.empty_cache()
 
     print(f"elapsed_s {time.perf_counter() - t_start:.1f} before phase 12")

@@ -88,6 +88,16 @@ def _pick(cond: torch.Tensor, new, old):
                      new, old)
 
 
+def _tracer_of(obs):
+    """``obs``'s span tracer, or for no bundle a disabled one (its spans
+    and stages are the shared no-op)."""
+    if obs is not None:
+        return obs.tracer
+    # a lazy import, as repro_torch.obs imports repro_torch.core
+    from repro_torch.obs.trace import SpanTracer
+    return SpanTracer(enabled=False)
+
+
 def _scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
@@ -153,7 +163,7 @@ def _lane_pe_update(pe_update, buffers, eff, idx, value, num_pe: int):
 def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
                       chunk_size: int, *, profile_chunks: int,
                       threshold: float, mem_width_tuples: int,
-                      static_plan: bool, pe_update) -> Callable:
+                      static_plan: bool, pe_update, obs=None) -> Callable:
     """The per-chunk body shared by every executor shape:
     ``(state, chunk, mask) -> (state, stats)``.  ``mask`` is None (dense
     chunk) or bool[chunk_size].  A lanes-stacked state (``stack_states``:
@@ -161,12 +171,19 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
     and mask bool[L, chunk_size], and each lane keeps its own plan, mode,
     monitor and re-schedule counter.  The step folds into
     ``state.buffers`` in place; every other field of the returned state
-    is a new tensor."""
-    num_pe = num_pri + num_sec
+    is a new tensor.
 
-    def chunk_step(state: ExecState, chunk: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None):
-        lanes = state.mode.dim()          # 0: one stream, 1: [L] lanes
+    With an ``obs`` bundle whose tracer is on, each step is an
+    ``executor.step`` span holding its three stages, one staged span
+    (``SpanTracer.stages``: a clock read a stage): ``executor.route``
+    (PrePE, mask, workload histogram, occurrence rank, redirect),
+    ``executor.pe_update`` and ``executor.schedule`` (cycle model,
+    profiler, SecPE scheduling, monitor, re-schedule, stats).  With
+    ``obs=None`` the step emits no span."""
+    num_pe = num_pri + num_sec
+    tracer = _tracer_of(obs)
+
+    def route(state: ExecState, chunk: torch.Tensor, mask: Optional[torch.Tensor]):
         # `live` gates every carry update that counts chunks: a fully
         # masked chunk leaves the window, monitor and mode as they were.
         live = None if mask is None else mask.any(dim=-1)
@@ -180,12 +197,16 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         eff = mapper.redirect(state.plan, dst, rank)
         if mask is not None:
             eff = torch.where(mask, eff, num_pe)
+        return live, workload, rr_base, eff, idx, value
 
-        if lanes and spec.merge is None:
-            buffers = _lane_pe_update(pe_update, state.buffers, eff, idx, value, num_pe)
-        else:        # one stream, or a spec whose update takes the lanes axis
-            buffers = pe_update(state.buffers, eff, idx, value)
+    def update(state: ExecState, eff, idx, value):
+        if state.mode.dim() and spec.merge is None:
+            return _lane_pe_update(pe_update, state.buffers, eff, idx, value, num_pe)
+        # one stream, or a spec whose update takes the lanes axis
+        return pe_update(state.buffers, eff, idx, value)
 
+    def schedule(state: ExecState, buffers, live, workload, rr_base, eff):
+        lanes = state.mode.dim()          # 0: one stream, 1: [L] lanes
         # port-limited cycle model for the monitor and the stats
         max_load = profiler.workload_hist(eff, num_pe).amax(dim=-1)
         cycles = perfmodel.chunk_cycles(chunk_size, max_load,
@@ -252,6 +273,16 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
                               chunks_in_mode=chunks_in_mode, monitor=monitor,
                               reschedules=state.reschedules + fire.to(torch.int32))
         return new_state, stats
+
+    def chunk_step(state: ExecState, chunk: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None):
+        with tracer.stages("executor.step", cat="executor") as stage:
+            stage("executor.route")
+            live, workload, rr_base, eff, idx, value = route(state, chunk, mask)
+            stage("executor.pe_update")
+            buffers = update(state, eff, idx, value)
+            stage("executor.schedule")
+            return schedule(state, buffers, live, workload, rr_base, eff)
 
     return chunk_step
 
@@ -321,6 +352,13 @@ class ResumableExecutor:
         leaves [L, num_chunks, ...]), lane l equal to ``run_chunks`` of
         lane l alone; the caller's state stays as it was.  The chunks go to
         the device of ``states`` (a mesh shard's, ``core.distributed``)."""
+        states, chunks, mask = self._load_lanes(states, chunks, mask)
+        states, stats = self._step_lanes(states, chunks, mask)
+        return states, _stack_stats(stats, states, self.num_pri)
+
+    def _load_lanes(self, states: ExecState, chunks, mask):
+        """``scan_lanes``' inputs on the device of ``states``, checked, and
+        a copy of ``states`` to step."""
         device = states.mode.device
         chunks = torch.as_tensor(chunks, device=device)
         if mask is not None:
@@ -331,13 +369,17 @@ class ResumableExecutor:
             raise ValueError(f"chunks must be [{lanes[0] if lanes else 'L'}, num_chunks, "
                              f"{self.chunk_size}, ...] for a state of {tuple(lanes)} "
                              f"lanes, got {tuple(chunks.shape)}")
-        states = states.clone()
+        return states.clone(), chunks, mask
+
+    def _step_lanes(self, states: ExecState, chunks, mask):
+        """One batched chunk step per k of ``chunks[:, k]``: (states, the
+        steps' ExecStats in a list)."""
         stats = []
         for k in range(chunks.shape[1]):
             states, s = self.step(states, chunks[:, k],
                                   None if mask is None else mask[:, k])
             stats.append(s)
-        return states, _stack_stats(stats, states, self.num_pri)
+        return states, stats
 
     def merge_state(self, state: ExecState):
         """Merged [M, *local] buffers ([L, M, *local] for a lanes-stacked
@@ -361,7 +403,7 @@ def make_resumable_executor(spec: DittoSpec, num_pri: Any,
                             profile_chunks: int = 1, threshold: float = 0.0,
                             mem_width_tuples: Optional[int] = None,
                             static_plan: bool = False,
-                            device="cuda",
+                            device="cuda", obs=None,
                             _who: str = "make_resumable_executor") -> ResumableExecutor:
     """The suspend/resume shape of ``make_executor`` (same knobs)::
 
@@ -372,7 +414,9 @@ def make_resumable_executor(spec: DittoSpec, num_pri: Any,
         state, stats = res.run_chunks(state, chunks_b, mask)
 
     A spec with its own ``merge`` keeps per-PE output regions that cannot
-    be re-merged mid-stream, so it takes ``threshold=0.0`` only.
+    be re-merged mid-stream, so it takes ``threshold=0.0`` only.  ``obs``
+    (an ``Observability`` bundle) gets each step's spans
+    (``_build_chunk_step``); None, the default, emits none.
     """
     num_pri, num_sec, chunk_size, mem_width_tuples = _resolve_config(
         num_pri, num_sec, chunk_size, mem_width_tuples)
@@ -381,20 +425,17 @@ def make_resumable_executor(spec: DittoSpec, num_pri: Any,
             f"{spec.name}: non-decomposable applications keep per-PE output "
             "regions and cannot re-merge mid-stream; use threshold=0.0")
     device = resolve_device(device)
-    # the observability hook on the funnel every executor build goes
-    # through; a lazy import, as repro_torch.obs imports repro_torch.core
+    # the build counter on the funnel every executor build goes through; a
+    # lazy import, as repro_torch.obs imports repro_torch.core
     from repro_torch import obs as obs_lib
-    obs = obs_lib.get_default()
-    obs.registry.counter(
+    obs_lib.get_default().registry.counter(
         "executor_builds_total", "executor factory calls, by entry point",
         labels=("kind",)).inc(kind=_who)
-    with obs.span("executor.build", cat="build", kind=_who, app=spec.name,
-                  num_pri=num_pri, num_sec=num_sec, chunk_size=chunk_size):
-        pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
-        step = _build_chunk_step(
-            spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
-            threshold=threshold, mem_width_tuples=mem_width_tuples,
-            static_plan=static_plan, pe_update=pe_update)
+    pe_update = spec.pe_update or partial(default_pe_update, combine=spec.combine)
+    step = _build_chunk_step(
+        spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
+        threshold=threshold, mem_width_tuples=mem_width_tuples,
+        static_plan=static_plan, pe_update=pe_update, obs=obs)
     return ResumableExecutor(spec=spec, num_pri=num_pri, num_sec=num_sec,
                              chunk_size=chunk_size, device=device, step=step)
 
@@ -403,7 +444,7 @@ def make_executor(spec: DittoSpec, num_pri: Any, num_sec: Optional[int] = None,
                   chunk_size: Optional[int] = None, *, profile_chunks: int = 1,
                   threshold: float = 0.0, mem_width_tuples: Optional[int] = None,
                   static_plan: bool = False,
-                  device="cuda") -> Callable[..., tuple[Any, ExecStats]]:
+                  device="cuda", obs=None) -> Callable[..., tuple[Any, ExecStats]]:
     """Build the streaming executor.
 
     spec: the application; num_pri/num_sec: M PriPEs and X SecPEs, or a
@@ -415,7 +456,8 @@ def make_executor(spec: DittoSpec, num_pri: Any, num_sec: Optional[int] = None,
     disables it); mem_width_tuples: W of Eq. 1 (8 by default);
     static_plan: skip runtime profiling (the caller passes a plan);
     device: where the state lives and the kernels run ("cuda" raises
-    without a CUDA device).
+    without a CUDA device); obs: the ``Observability`` bundle that gets
+    each chunk step's spans, or None (no spans).
 
     Returns fn(tuples, plan=None, mask=None) -> (merged buffers, ExecStats);
     ``tuples`` is [num_chunks, chunk_size, ...], ``mask`` an optional
@@ -424,7 +466,7 @@ def make_executor(spec: DittoSpec, num_pri: Any, num_sec: Optional[int] = None,
     res = make_resumable_executor(
         spec, num_pri, num_sec, chunk_size, profile_chunks=profile_chunks,
         threshold=threshold, mem_width_tuples=mem_width_tuples,
-        static_plan=static_plan, device=device, _who="make_executor")
+        static_plan=static_plan, device=device, obs=obs, _who="make_executor")
 
     def run(tuples, plan: Optional[RoutePlan] = None, mask=None):
         state = res.init_state()
@@ -485,7 +527,8 @@ def stack_plans(plans) -> RoutePlan:
 def make_multistream_executor(spec: DittoSpec, num_pri: Any,
                               num_sec: Optional[int] = None,
                               chunk_size: Optional[int] = None, *,
-                              device="cuda", **kw) -> Callable[..., tuple[Any, ExecStats]]:
+                              device="cuda", obs=None,
+                              **kw) -> Callable[..., tuple[Any, ExecStats]]:
     """S independent chunk streams through one lane-batched chunk step.
 
     Every stream is a lane with its own profiler and scheduler state
@@ -502,16 +545,25 @@ def make_multistream_executor(spec: DittoSpec, num_pri: Any,
         streams and all-masked pad lanes are exact no-ops.
     The outputs gain a leading [S] axis and equal, lane by lane, each stream
     run alone through ``make_executor``, bit for bit for integer apps.
+    With an ``obs`` bundle a run is three spans around the steps' own:
+    ``executor.load`` (the inputs to the device, the lanes' states),
+    the ``executor.step`` spans, and ``executor.finish`` (the stats
+    stacked, the merge).
     """
     res = make_resumable_executor(spec, num_pri, num_sec, chunk_size, device=device,
-                                  _who="make_multistream_executor", **kw)
+                                  obs=obs, _who="make_multistream_executor", **kw)
+    tracer = _tracer_of(obs)
 
     def run_streams(tuples, plans: Optional[RoutePlan] = None, mask=None):
-        tuples = torch.as_tensor(tuples, device=res.device)
-        states = stack_states(res.init_state(), tuples.shape[0])
-        if plans is not None:
-            states = with_plan(states, _tree_map(lambda t: t.to(res.device), plans))
-        states, stats = res.scan_lanes(states, tuples, mask)
-        return res.merge_state(states), stats
+        with tracer.span("executor.load", cat="executor"):
+            tuples = torch.as_tensor(tuples, device=res.device)
+            states = stack_states(res.init_state(), tuples.shape[0])
+            if plans is not None:
+                states = with_plan(states, _tree_map(lambda t: t.to(res.device), plans))
+            states, tuples, mask = res._load_lanes(states, tuples, mask)
+        states, stats = res._step_lanes(states, tuples, mask)
+        with tracer.span("executor.finish", cat="executor"):
+            stats = _stack_stats(stats, states, res.num_pri)
+            return res.merge_state(states), stats
 
     return run_streams

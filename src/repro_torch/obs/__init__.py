@@ -17,7 +17,8 @@ The counterpart of ``repro/obs/__init__.py``, with its API:
 ``Observability`` is the bundle the serving layers take as ``obs=``;
 ``enabled=False`` turns every metric op and span into an early return.
 ``get_default()`` is the process bundle that layers without an ``obs=``
-write to (the ``executor.build`` hook of ``make_resumable_executor``).
+write to (the ``executor_builds_total`` counter of
+``make_resumable_executor``).
 
 ``region()`` is the composable build-attribution scope over the port's
 ``core.compilemon`` (nvcc builds and library loads): nested regions report

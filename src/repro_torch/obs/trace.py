@@ -1,8 +1,8 @@
 """Span tracer: nested timing spans exported as Chrome/Perfetto
 ``trace_event`` JSON.
 
-A copy of ``repro/obs/trace.py`` (pure Python); the same API and output as the
-JAX package's.
+A copy of ``repro/obs/trace.py``; the same API and output as the JAX
+package's, plus the profiler ranges below.
 
 A flush is a small pipeline -- admit, re-grant, pack, N scan segments,
 merge -- and a slow query is almost always one stage of it (a WAL
@@ -23,6 +23,19 @@ detail pane).  The event buffer is a ring (``cap`` events, oldest
 dropped first, ``dropped`` counted) so a long-running engine holds a
 bounded trace tail; ``enabled=False`` makes ``span()`` return a shared
 no-op context (one attribute check per call on the disabled path).
+
+One clock with the device: a span entered while ``torch.profiler`` records
+also opens a profiler range of its name (``record_function``) for its life,
+so the range sits among the profiler's host events beside the kernels it
+launched.  The check is one flag read; with no profiler running, no range
+is entered.  Spans emitted after the fact (``complete``,
+``complete_batch``, ``defer``) and ``instant`` markers are not mirrored.
+
+A body run too often for a span object a stage (the executor's chunk
+step) takes ``stages()``: one span cut into consecutive stage spans at a
+clock read a stage, recorded on exit under one ring lock.  A live span's
+ring entry is its raw record ``(name, cat, t0_ns, t1_ns, tid, args)``,
+built into its event dict only on export.
 """
 from __future__ import annotations
 
@@ -35,6 +48,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional
+
+from torch.autograd import profiler as _torch_profiler
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +112,8 @@ def adopt_trace(raw: Any) -> Dict[str, Optional[str]]:
 
 
 class _NullSpan:
-    """Reusable no-op context for the disabled fast path."""
+    """Reusable no-op context for the disabled fast path (of ``span()``
+    and of ``stages()``, whose stage calls it ignores too)."""
 
     __slots__ = ()
 
@@ -106,6 +122,9 @@ class _NullSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def __call__(self, stage: str) -> None:
+        pass
 
     def set(self, **attrs) -> None:
         pass
@@ -117,7 +136,7 @@ _NULL_SPAN = _NullSpan()
 class _Span:
     """One live span; records a complete ("X") event on exit."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_range")
 
     def __init__(self, tracer: "SpanTracer", name: str, cat: str,
                  args: Dict[str, Any]):
@@ -132,18 +151,64 @@ class _Span:
         self.args.update(attrs)
 
     def __enter__(self):
+        self._range = None
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         now = time.perf_counter_ns()
-        self._tracer._emit({
-            "name": self.name, "ph": "X", "cat": self.cat,
-            "ts": self._t0 // 1000 - self._tracer._epoch_us,
-            "dur": max((now - self._t0) // 1000, 1),
-            "pid": self._tracer.pid, "tid": threading.get_ident(),
-            "args": self.args,
-        })
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._tracer._emit((self.name, self.cat, self._t0, now,
+                            threading.get_ident(), self.args))
+        return False
+
+
+class _Stages:
+    """One live span cut into consecutive stages, each a span of its own
+    (``SpanTracer.stages``)."""
+
+    __slots__ = ("_tracer", "name", "cat", "_marks", "_ranges")
+
+    def __init__(self, tracer: "SpanTracer", name: str, cat: str):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+
+    def __enter__(self):
+        self._ranges = None
+        if _torch_profiler._is_profiler_enabled:
+            outer = _torch_profiler.record_function(self.name)
+            outer.__enter__()
+            self._ranges = [outer]
+        self._marks = [(self.name, time.perf_counter_ns())]
+        return self
+
+    def __call__(self, stage: str) -> None:
+        """End the running stage, if any, and start ``stage``."""
+        ranges = self._ranges
+        if ranges is not None:
+            if len(ranges) > 1:
+                ranges.pop().__exit__(None, None, None)
+            inner = _torch_profiler.record_function(stage)
+            inner.__enter__()
+            ranges.append(inner)
+        self._marks.append((stage, time.perf_counter_ns()))
+
+    def __exit__(self, *exc):
+        now = time.perf_counter_ns()
+        if self._ranges is not None:
+            for r in reversed(self._ranges):
+                r.__exit__(*exc)
+        marks, tid, cat = self._marks, threading.get_ident(), self.cat
+        ends = [t for _, t in marks[2:]] + [now]
+        # the stages first, then the whole: the order of nested live spans
+        self._tracer._append_events(
+            [(stage, cat, t0, t1, tid, {}) for (stage, t0), t1 in zip(marks[1:], ends)]
+            + [(self.name, cat, marks[0][1], now, tid, {})])
         return False
 
 
@@ -163,7 +228,7 @@ class SpanTracer:
         self.dropped = 0
         self.dropped_deferred = 0
         self.pid = os.getpid()
-        self._events: Deque[Dict[str, Any]] = deque()
+        self._events: Deque[Any] = deque()   # event dicts and live spans' records
         self._lock = threading.Lock()
         # deferred span records: (make_events, payload) pairs materialized
         # lazily at export time (see defer())
@@ -174,10 +239,30 @@ class SpanTracer:
     def span(self, name: str, cat: str = "engine", **attrs):
         """Context manager timing one span; ``attrs`` become the event's
         ``args``.  Nest freely -- containment on the thread track is the
-        nesting the trace viewer renders."""
+        nesting the trace viewer renders.  Under a recording
+        ``torch.profiler`` the span is also a profiler range of ``name``."""
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, cat, attrs)
+
+    def stages(self, name: str, cat: str = "engine"):
+        """Context manager timing one span ``name`` whose body is cut
+        into consecutive stage spans: calling it with a stage's name ends
+        the running stage and starts that one::
+
+            with tracer.stages("executor.step") as stage:
+                stage("executor.route")
+                ...
+                stage("executor.schedule")
+                ...
+
+        The events are those of nested ``span()`` calls, at a clock read
+        a stage, for a body run too often for a span object each.  Under
+        a recording ``torch.profiler`` the span and each stage are
+        profiler ranges of their names."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Stages(self, name, cat)
 
     def complete(self, name: str, cat: str = "engine", *,
                  t0_ns: int, t1_ns: int, **attrs) -> None:
@@ -185,7 +270,8 @@ class SpanTracer:
         endpoints -- for intervals measured where a context manager
         cannot wrap them (e.g. a request's queue wait, whose start was
         stamped on the event loop and whose end is only known once the
-        engine worker picks the request up)."""
+        engine worker picks the request up).  Emitted after the fact, it
+        is no profiler range."""
         if not self.enabled:
             return
         self._emit({"name": name, "ph": "X", "cat": cat,
@@ -210,15 +296,17 @@ class SpanTracer:
 
     def _build_events(self, spans) -> List[Dict[str, Any]]:
         here = threading.get_ident()
-        epoch = self._epoch_us
-        return [{"name": name, "ph": "X", "cat": cat,
-                 "ts": t0_ns // 1000 - epoch,
-                 "dur": max((t1_ns - t0_ns) // 1000, 1),
-                 "pid": self.pid, "tid": tid if tid is not None else here,
-                 "args": args}
+        return [self._complete_event(name, cat, t0_ns, t1_ns,
+                                     tid if tid is not None else here, args)
                 for name, cat, t0_ns, t1_ns, tid, args in spans]
 
-    def _append_events(self, evs: List[Dict[str, Any]]) -> None:
+    def _complete_event(self, name, cat, t0_ns, t1_ns, tid, args) -> Dict[str, Any]:
+        return {"name": name, "ph": "X", "cat": cat,
+                "ts": t0_ns // 1000 - self._epoch_us,
+                "dur": max((t1_ns - t0_ns) // 1000, 1),
+                "pid": self.pid, "tid": tid, "args": args}
+
+    def _append_events(self, evs: list) -> None:
         with self._lock:
             over = len(self._events) + len(evs) - self.cap
             for _ in range(min(max(over, 0), len(self._events))):
@@ -272,7 +360,9 @@ class SpanTracer:
                     "pid": self.pid, "tid": threading.get_ident(),
                     "s": "t", "args": attrs})
 
-    def _emit(self, ev: Dict[str, Any]) -> None:
+    def _emit(self, ev) -> None:
+        """Ring one event: its dict, or a live span's raw record
+        ``(name, cat, t0_ns, t1_ns, tid, args)``."""
         with self._lock:
             if len(self._events) >= self.cap:
                 self._events.popleft()
@@ -284,7 +374,8 @@ class SpanTracer:
     def events(self) -> List[Dict[str, Any]]:
         self._materialize()
         with self._lock:
-            return list(self._events)
+            ring = list(self._events)
+        return [e if isinstance(e, dict) else self._complete_event(*e) for e in ring]
 
     def span_names(self) -> set:
         return {e["name"] for e in self.events()}

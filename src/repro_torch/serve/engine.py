@@ -229,7 +229,8 @@ class StreamEngine:
         self.max_streams = max_streams
         self.device = resolve_device(device)
         self._run_streams = make_multistream_executor(
-            spec, num_pri, num_sec, chunk_size, device=self.device, **executor_kw)
+            spec, num_pri, num_sec, chunk_size, device=self.device, obs=self.obs,
+            **executor_kw)
         self._next_rid = 0
         self.pending: List[StreamRequest] = []
 
@@ -279,23 +280,34 @@ class StreamEngine:
     def _run_batch(self, batch: List[StreamRequest]):
         """One lane-batched run of ``batch``, padded to max_streams ->
         (merged [max_streams, ...], ExecStats [max_streams, K, ...]) as
-        numpy, one device-to-host copy of each output."""
-        stack = np.stack([r.chunks for r in batch])
-        pad = self.max_streams - len(batch)
-        if pad > 0:
-            stack = np.concatenate([stack, np.zeros((pad, *stack.shape[1:]), stack.dtype)])
-        plans = None
-        if batch[0].plan is not None:
-            plans = stack_plans([r.plan for r in batch] + [batch[0].plan] * pad)
-        mask = None
-        if pad > 0 or any(r.mask is not None for r in batch):
-            mask = torch.as_tensor(np.stack(
-                [r.mask if r.mask is not None else np.ones(r.chunks.shape[:2], bool)
-                 for r in batch] + [np.zeros(batch[0].chunks.shape[:2], bool)] * pad))
-        merged, stats = self._run_streams(torch.as_tensor(stack), plans, mask=mask)
-        return merged.cpu().numpy(), ExecStats(**{
-            f.name: getattr(stats, f.name).cpu().numpy()
-            for f in dataclasses.fields(ExecStats)})
+        numpy, one device-to-host copy of each output.  Spans:
+        ``stream.stack`` (the host's stack of the streams, the pad lanes,
+        plans and mask), the executor's own, ``stream.drain`` (the host
+        waits for the batch's device work) and ``stream.collect`` (the
+        copies back)."""
+        with self.obs.span("stream.stack", cat="stream"):
+            stack = np.stack([r.chunks for r in batch])
+            pad = self.max_streams - len(batch)
+            if pad > 0:
+                stack = np.concatenate([stack, np.zeros((pad, *stack.shape[1:]),
+                                                        stack.dtype)])
+            plans = None
+            if batch[0].plan is not None:
+                plans = stack_plans([r.plan for r in batch] + [batch[0].plan] * pad)
+            mask = None
+            if pad > 0 or any(r.mask is not None for r in batch):
+                mask = torch.as_tensor(np.stack(
+                    [r.mask if r.mask is not None else np.ones(r.chunks.shape[:2], bool)
+                     for r in batch] + [np.zeros(batch[0].chunks.shape[:2], bool)] * pad))
+            tuples = torch.as_tensor(stack)
+        merged, stats = self._run_streams(tuples, plans, mask=mask)
+        with self.obs.span("stream.drain", cat="stream"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with self.obs.span("stream.collect", cat="stream"):
+            return merged.cpu().numpy(), ExecStats(**{
+                f.name: getattr(stats, f.name).cpu().numpy()
+                for f in dataclasses.fields(ExecStats)})
 
     def flush(self) -> Dict[int, tuple]:
         """Run every pending request; returns {rid: (merged, stats)}, numpy."""
@@ -305,7 +317,8 @@ class StreamEngine:
             while self.pending:
                 batch = self._next_batch()
                 with self.obs.span("stream.batch", cat="stream", size=len(batch),
-                                   chunks=int(batch[0].chunks.shape[0])):
+                                   chunks=int(batch[0].chunks.shape[0]),
+                                   rids=[r.rid for r in batch]):
                     merged, stats = self._run_batch(batch)
                     for i, req in enumerate(batch):
                         out[req.rid] = (merged[i], ExecStats(**{

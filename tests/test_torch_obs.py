@@ -178,7 +178,8 @@ def test_build_reports_to_compilemon(tmp_path, monkeypatch):
 
 def test_executor_build_hook():
     """Every executor factory call counts in executor_builds_total{kind}
-    and leaves an executor.build span on the default bundle."""
+    on the default bundle, and leaves no executor.build span there (the
+    build is a Python closure; compilemon counts the kernels' builds)."""
     o = obs_lib.get_default()
     fam = o.registry.counter("executor_builds_total", labels=("kind",))
     before = {k: fam.value(kind=k) for k in ("make_executor", "make_resumable_executor",
@@ -189,9 +190,7 @@ def test_executor_build_hook():
     executor.make_multistream_executor(spec, 4, 2, 64, device="cpu")
     for kind, n in before.items():
         assert fam.value(kind=kind) == n + 1, kind
-    spans = [e for e in o.tracer.events() if e["name"] == "executor.build"]
-    assert spans[-1]["args"] == {"kind": "make_multistream_executor", "app": "histo",
-                                 "num_pri": 4, "num_sec": 2, "chunk_size": 64}
+    assert not [e for e in o.tracer.events() if e["name"] == "executor.build"]
     text = o.registry.prometheus_text()
     assert 'executor_builds_total{kind="make_multistream_executor"}' in text
     metrics.parse_prometheus(text)
