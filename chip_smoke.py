@@ -72,7 +72,7 @@ Phases (any failure exits non-zero before the result lines):
      init_state made them; each PE kernel once per batched chunk; the
      Prometheus text through parse_prometheus and the trace's stream spans
      (stream.flush / stream.batch / stream.stack / executor.load /
-     executor.step / executor.route / executor.pe_update /
+     executor.step / executor.route / executor.pe_update / executor.plan /
      executor.schedule / executor.finish / stream.drain / stream.collect;
      no executor.build).  Prints flush
      seconds and tuples/s per engine, ms per batched chunk at L = 1, 2, 4
@@ -365,7 +365,7 @@ SERVICE_TUPLES, SERVICE_MAX_APPEND = 2**23, 2**19   # through the socket; 4 MB f
 SERVICE_RATE = (20.0, 4.0)                   # per-tenant requests/s, burst
 SERVICE_TWIN_OPS = 200                       # single-client requests, CPU vs card
 STREAM_SPANS = ("stream.flush", "stream.batch", "stream.stack", "executor.load",
-                "executor.step", "executor.route", "executor.pe_update",
+                "executor.step", "executor.route", "executor.pe_update", "executor.plan",
                 "executor.schedule", "executor.finish", "stream.drain", "stream.collect")
 SWEEP_M, SWEEP_X, SWEEP_CHUNK = 16, 14, 4096   # phase 11 (b): the paper's HISTO skew sweep
 SWEEP_BINS, SWEEP_DOMAIN, SWEEP_TUPLES = 512, 1 << 20, 13 * 2**20   # tuples a stream
@@ -1086,26 +1086,30 @@ def span_us(fn, n: int = 100_000) -> float:
 
 def step_block_turns(spec, streams, chunk: int, m: int, x: int, dev, on,
                      block: int = 8, passes: int = 2) -> dict:
-    """The chunk step's own span cost at the stream's full width: every
-    step of ``streams`` (lanes), ``passes`` times, in blocks of ``block``
-    steps, the blocks
+    """The chunk step's own span cost at the stream's full width, on the
+    steps a flush runs: every step of ``streams`` (lanes), ``passes``
+    times, in blocks of ``block`` steps through the executor's loop
+    (``_step_lanes``) with the settled flags of one call over the streams
+    (all but each pass's first step settled, as in a flush), the blocks
     taking turns in a rotating order between two executors without spans
     (bare, and bare2 as the control of the method), and one whose bundle
     ``on`` is switched off (off) and on (on).  Turns this short keep the
     host's drift out of the comparison: returns each variant's median
     block time and the median over rounds of its block time against
     bare's, in %."""
-    from repro_torch.core.executor import make_resumable_executor, stack_states
+    from repro_torch.core.executor import (_settled_steps, make_resumable_executor,
+                                           stack_states)
     whole = len(streams[0]) // chunk * chunk
     tuples = torch.as_tensor(np.stack([s[:whole] for s in streams])).to(dev) \
         .view(len(streams), -1, chunk, 2)
-    steps = {"bare": make_resumable_executor(spec, m, x, chunk, device=dev).step,
-             "bare2": make_resumable_executor(spec, m, x, chunk, device=dev).step}
-    steps["off"] = steps["on"] = make_resumable_executor(spec, m, x, chunk, device=dev,
-                                                         obs=on).step
-    order = list(steps)
-    states = stack_states(make_resumable_executor(spec, m, x, chunk, device=dev)
-                          .init_state(), len(streams))
+    execs = {"bare": make_resumable_executor(spec, m, x, chunk, device=dev),
+             "bare2": make_resumable_executor(spec, m, x, chunk, device=dev)}
+    execs["off"] = execs["on"] = make_resumable_executor(spec, m, x, chunk, device=dev,
+                                                         obs=on)
+    order = list(execs)
+    states = stack_states(execs["bare"].init_state(), len(streams))
+    settled = _settled_steps(execs["bare"].step.settles_after, None, len(streams),
+                             tuples.shape[1])
     rounds = []
     per_pass = tuples.shape[1] // (len(order) * block)
     torch.cuda.synchronize()
@@ -1116,8 +1120,8 @@ def step_block_turns(spec, streams, chunk: int, m: int, x: int, dev, on,
             on.enabled = name == "on"
             k = (len(order) * (r % per_pass) + i) * block
             t0 = time.perf_counter()
-            for j in range(k, k + block):
-                states, _ = steps[name](states, tuples[:, j])
+            states, _ = execs[name]._step_lanes(states, tuples[:, k:k + block], None,
+                                                settled[k:k + block])
             times[name] = time.perf_counter() - t0
         rounds.append(times)
     on.enabled = True

@@ -171,14 +171,28 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
     and mask bool[L, chunk_size], and each lane keeps its own plan, mode,
     monitor and re-schedule counter.  The step folds into
     ``state.buffers`` in place; every other field of the returned state
-    is a new tensor.
+    is a new tensor, except that under ``threshold == 0`` it hands back
+    the input's ``reschedules``, and a settled step the input's ``plan``
+    and ``mode`` too.
+
+    A settled step (the private keyword ``_settled``, which only the
+    executor's own loops pass, from ``_settled_steps``) is one on which
+    the caller has proven that no lane can take a plan: it skips the
+    SecPE plan's generation, whose result would not be picked, and
+    returns what the full step returns, bit for bit.  The step's
+    ``settles_after`` attribute is the bound ``_settled_steps`` proves it
+    with: the live steps after which a lane can take no plan and never
+    fires (None under ``threshold > 0`` or a static plan: no step
+    settles).
 
     With an ``obs`` bundle whose tracer is on, each step is an
-    ``executor.step`` span holding its three stages, one staged span
+    ``executor.step`` span holding its stages, one staged span
     (``SpanTracer.stages``: a clock read a stage): ``executor.route``
     (PrePE, mask, workload histogram, occurrence rank, redirect),
-    ``executor.pe_update`` and ``executor.schedule`` (cycle model,
-    profiler, SecPE scheduling, monitor, re-schedule, stats).  With
+    ``executor.pe_update``, on a full step of the runtime profiler
+    ``executor.plan`` (profiler, SecPE plan generation, reference cycles),
+    and ``executor.schedule`` (cycle model, the mode machine's picks,
+    monitor, re-schedule, stats; a settled step's profiler too).  With
     ``obs=None`` the step emits no span."""
     num_pe = num_pri + num_sec
     tracer = _tracer_of(obs)
@@ -205,7 +219,29 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
         # one stream, or a spec whose update takes the lanes axis
         return pe_update(state.buffers, eff, idx, value)
 
-    def schedule(state: ExecState, buffers, live, workload, rr_base, eff):
+    def profile(state: ExecState, live, workload):
+        # runtime profiler: PROFILE mode accumulates the workload hist
+        in_profile = state.mode == PROFILE_MODE
+        profile_hist = torch.where(_lanewise(in_profile, 2),
+                                   state.profile_hist + workload, state.profile_hist)
+        chunks_in_mode = state.chunks_in_mode + \
+            (1 if live is None else live.to(torch.int32))
+        return in_profile, profile_hist, chunks_in_mode
+
+    def make_plan(state: ExecState, live, workload):
+        # the SecPE plan of the profiled window (Fig. 5), which a lane
+        # takes on its PROFILE -> RUN step, and its reference cycles
+        in_profile, profile_hist, chunks_in_mode = profile(state, live, workload)
+        assignment = scheduler.schedule_secpes(profile_hist, num_sec)
+        new_plan = mapper.apply_schedule(state.plan, assignment)
+        post_load = scheduler.post_plan_max_load(
+            profile_hist.to(torch.float32)
+            / _lanewise(chunks_in_mode.clamp(min=1), 2), assignment)
+        ref_cycles = perfmodel.chunk_cycles(chunk_size, post_load,
+                                            mem_width_tuples, spec.ii_pe)
+        return in_profile, profile_hist, chunks_in_mode, new_plan, ref_cycles
+
+    def schedule(state: ExecState, buffers, live, workload, rr_base, eff, planned):
         lanes = state.mode.dim()          # 0: one stream, 1: [L] lanes
         # port-limited cycle model for the monitor and the stats
         max_load = profiler.workload_hist(eff, num_pe).amax(dim=-1)
@@ -219,72 +255,102 @@ def _build_chunk_step(spec: DittoSpec, num_pri: int, num_sec: int,
                               workload=workload)
             return dataclasses.replace(state, buffers=buffers, rr_base=rr_base), stats
 
-        # runtime profiler: PROFILE mode accumulates the workload hist
-        in_profile = state.mode == PROFILE_MODE
-        profile_hist = torch.where(_lanewise(in_profile, 2),
-                                   state.profile_hist + workload, state.profile_hist)
-        chunks_in_mode = state.chunks_in_mode + \
-            (1 if live is None else live.to(torch.int32))
-
-        # PROFILE -> RUN: generate and apply the SecPE plan (Fig. 5)
-        plan_ready = in_profile & (chunks_in_mode >= profile_chunks)
-        if live is not None:
-            plan_ready = plan_ready & live
-        assignment = scheduler.schedule_secpes(profile_hist, num_sec)
-        new_plan = mapper.apply_schedule(state.plan, assignment)
-        post_load = scheduler.post_plan_max_load(
-            profile_hist.to(torch.float32)
-            / _lanewise(chunks_in_mode.clamp(min=1), 2), assignment)
-        ref_cycles = perfmodel.chunk_cycles(chunk_size, post_load,
-                                            mem_width_tuples, spec.ii_pe)
-
-        plan = _pick(plan_ready, new_plan, state.plan)
-        monitor = _pick(plan_ready,
-                        profiler.MonitorState(ref_cycles=ref_cycles,
-                                              ema_cycles=torch.zeros_like(ref_cycles)),
-                        state.monitor)
-        mode = torch.where(plan_ready, RUN_MODE, state.mode)
-        chunks_in_mode = torch.where(plan_ready, 0, chunks_in_mode)
+        if planned is None:
+            # a settled step: no lane is ready for a plan, so plan and
+            # mode stay as they are and the monitor only takes its update
+            _, profile_hist, chunks_in_mode = profile(state, live, workload)
+            plan, monitor, mode = state.plan, state.monitor, state.mode
+            steady = mode == RUN_MODE
+        else:
+            # PROFILE -> RUN: apply the SecPE plan (Fig. 5)
+            in_profile, profile_hist, chunks_in_mode, new_plan, ref_cycles = planned
+            plan_ready = in_profile & (chunks_in_mode >= profile_chunks)
+            if live is not None:
+                plan_ready = plan_ready & live
+            plan = _pick(plan_ready, new_plan, state.plan)
+            monitor = _pick(plan_ready,
+                            profiler.MonitorState(ref_cycles=ref_cycles,
+                                                  ema_cycles=torch.zeros_like(ref_cycles)),
+                            state.monitor)
+            mode = torch.where(plan_ready, RUN_MODE, state.mode)
+            chunks_in_mode = torch.where(plan_ready, 0, chunks_in_mode)
+            steady = (mode == RUN_MODE) & ~plan_ready
 
         # RUN mode: throughput monitoring -> re-schedule trigger (§IV-B)
-        steady = (mode == RUN_MODE) & ~plan_ready
         if live is not None:
             steady = steady & live
         monitor = _pick(steady, profiler.monitor_update(monitor, cycles), monitor)
-        fire = steady & profiler.should_reschedule(monitor, threshold)
-
+        fire = torch.zeros_like(state.mode, dtype=torch.bool)
+        reschedules = state.reschedules
         if threshold > 0.0:   # otherwise `fire` is always False
+            fire = steady & profiler.should_reschedule(monitor, threshold)
             merged = merger.merge_buffers(buffers, plan.assignment, num_pri,
                                           spec.combine)
             resched = merger.reset_sec_buffers(buffers, num_pri, spec.combine,
                                                pe_axis=lanes)
             resched.narrow(lanes, 0, num_pri).copy_(merged)
             buffers = _pick(fire, resched, buffers)
-        plan = _pick(fire, mapper.init_plan(num_pri, num_sec, mode.device), plan)
-        mode = torch.where(fire, PROFILE_MODE, mode)
-        profile_hist = torch.where(_lanewise(fire, 2), 0, profile_hist)
-        chunks_in_mode = torch.where(fire, 0, chunks_in_mode)
-        monitor = _pick(fire, profiler.MonitorState.fresh(mode.device), monitor)
+            plan = _pick(fire, mapper.init_plan(num_pri, num_sec, mode.device), plan)
+            mode = torch.where(fire, PROFILE_MODE, mode)
+            profile_hist = torch.where(_lanewise(fire, 2), 0, profile_hist)
+            chunks_in_mode = torch.where(fire, 0, chunks_in_mode)
+            monitor = _pick(fire, profiler.MonitorState.fresh(mode.device), monitor)
+            reschedules = reschedules + fire.to(torch.int32)
 
         stats = ExecStats(max_load=max_load, modeled_cycles=cycles,
                           mode=state.mode, rescheduled=fire, workload=workload)
         new_state = ExecState(buffers=buffers, plan=plan, rr_base=rr_base,
                               mode=mode, profile_hist=profile_hist,
                               chunks_in_mode=chunks_in_mode, monitor=monitor,
-                              reschedules=state.reschedules + fire.to(torch.int32))
+                              reschedules=reschedules)
         return new_state, stats
 
     def chunk_step(state: ExecState, chunk: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None):
+                   mask: Optional[torch.Tensor] = None, *, _settled: bool = False):
         with tracer.stages("executor.step", cat="executor") as stage:
             stage("executor.route")
             live, workload, rr_base, eff, idx, value = route(state, chunk, mask)
             stage("executor.pe_update")
             buffers = update(state, eff, idx, value)
+            planned = None
+            if not (static_plan or _settled):
+                stage("executor.plan")
+                planned = make_plan(state, live, workload)
             stage("executor.schedule")
-            return schedule(state, buffers, live, workload, rr_base, eff)
+            return schedule(state, buffers, live, workload, rr_base, eff, planned)
 
+    chunk_step.settles_after = None if threshold > 0.0 or static_plan \
+        else max(profile_chunks, 1)
     return chunk_step
+
+
+def _settled_steps(settles_after: Optional[int], mask, lanes: int,
+                   num_steps: int) -> list:
+    """Which of a call's ``num_steps`` chunk steps are settled: every lane
+    is either not live at the step (its chunk fully masked) or has had
+    ``settles_after`` live steps earlier in the call.  A lane in PROFILE
+    takes its plan on its ``profile_chunks``-th live step at the latest
+    (``chunks_in_mode`` counts live steps, whatever the state the call
+    started from), and without re-scheduling never leaves RUN, so on a
+    settled step no lane is ready for a plan and none fires.
+
+    ``settles_after`` is None where a step can always fire or is static
+    (threshold > 0, a static plan): no step is settled.  ``mask`` is None
+    (every lane live at every step), or the call's mask as the caller
+    passed it, [num_steps, chunk] for one stream or [lanes, num_steps,
+    chunk]; its liveness is read on the host, once.  A mask already on an
+    accelerator gives no host facts and is never read back: no step is
+    settled.  ``lanes`` is 0 for one stream."""
+    if settles_after is None or num_steps == 0:
+        return [False] * num_steps
+    if mask is None:
+        live = torch.ones((max(lanes, 1), num_steps), dtype=torch.bool)
+    elif isinstance(mask, torch.Tensor) and mask.device.type != "cpu":
+        return [False] * num_steps
+    else:
+        live = torch.as_tensor(mask).reshape(max(lanes, 1), num_steps, -1).any(dim=-1)
+    before = live.to(torch.int32).cumsum(dim=1) - live.to(torch.int32)
+    return ((~live) | (before >= settles_after)).all(dim=0).tolist()
 
 
 def _stack_stats(stats: list[ExecStats], like: ExecState,
@@ -314,7 +380,10 @@ class ResumableExecutor:
     steps over the leading chunk axis, leaving the caller's state as it
     was; ``scan_lanes`` does the same for a lanes-stacked state
     (``stack_states``).  ``merge_state`` is a non-destructive snapshot, of
-    every lane for a lanes-stacked state."""
+    every lane for a lanes-stacked state.  The loops run the steps on which
+    no lane can take a plan or re-schedule as settled steps
+    (``_settled_steps``), with the same results; ``step`` called directly
+    is always the full step."""
 
     spec: DittoSpec
     num_pri: int
@@ -329,16 +398,17 @@ class ResumableExecutor:
     def run_chunks(self, state: ExecState, chunks, mask=None):
         """-> (state, ExecStats stacked over the chunk axis)."""
         chunks = torch.as_tensor(chunks, device=self.device)
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
         if chunks.dim() < 2 or chunks.shape[1] != self.chunk_size:
             raise ValueError(f"chunks must be [num_chunks, {self.chunk_size}, ...], "
                              f"got {tuple(chunks.shape)}")
+        settled = _settled_steps(self.step.settles_after, mask, 0, chunks.shape[0])
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
         state = state.clone()
         stats = []
         for k in range(chunks.shape[0]):
-            state, s = self.step(state, chunks[k],
-                                 None if mask is None else mask[k])
+            state, s = self.step(state, chunks[k], None if mask is None else mask[k],
+                                 _settled=settled[k])
             stats.append(s)
         return state, _stack_stats(stats, state, self.num_pri)
 
@@ -352,32 +422,35 @@ class ResumableExecutor:
         leaves [L, num_chunks, ...]), lane l equal to ``run_chunks`` of
         lane l alone; the caller's state stays as it was.  The chunks go to
         the device of ``states`` (a mesh shard's, ``core.distributed``)."""
-        states, chunks, mask = self._load_lanes(states, chunks, mask)
-        states, stats = self._step_lanes(states, chunks, mask)
+        states, chunks, mask, settled = self._load_lanes(states, chunks, mask)
+        states, stats = self._step_lanes(states, chunks, mask, settled)
         return states, _stack_stats(stats, states, self.num_pri)
 
     def _load_lanes(self, states: ExecState, chunks, mask):
-        """``scan_lanes``' inputs on the device of ``states``, checked, and
-        a copy of ``states`` to step."""
+        """``scan_lanes``' inputs on the device of ``states``, checked, a
+        copy of ``states`` to step, and which steps are settled (read from
+        the mask before it leaves the host)."""
         device = states.mode.device
         chunks = torch.as_tensor(chunks, device=device)
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=device)
         lanes = states.mode.shape
         if len(lanes) != 1 or chunks.dim() < 3 or chunks.shape[0] != lanes[0] \
                 or chunks.shape[2] != self.chunk_size:
             raise ValueError(f"chunks must be [{lanes[0] if lanes else 'L'}, num_chunks, "
                              f"{self.chunk_size}, ...] for a state of {tuple(lanes)} "
                              f"lanes, got {tuple(chunks.shape)}")
-        return states.clone(), chunks, mask
+        settled = _settled_steps(self.step.settles_after, mask, lanes[0], chunks.shape[1])
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=device)
+        return states.clone(), chunks, mask, settled
 
-    def _step_lanes(self, states: ExecState, chunks, mask):
+    def _step_lanes(self, states: ExecState, chunks, mask, settled):
         """One batched chunk step per k of ``chunks[:, k]``: (states, the
         steps' ExecStats in a list)."""
         stats = []
         for k in range(chunks.shape[1]):
             states, s = self.step(states, chunks[:, k],
-                                  None if mask is None else mask[:, k])
+                                  None if mask is None else mask[:, k],
+                                  _settled=settled[k])
             stats.append(s)
         return states, stats
 
@@ -560,8 +633,8 @@ def make_multistream_executor(spec: DittoSpec, num_pri: Any,
             states = stack_states(res.init_state(), tuples.shape[0])
             if plans is not None:
                 states = with_plan(states, _tree_map(lambda t: t.to(res.device), plans))
-            states, tuples, mask = res._load_lanes(states, tuples, mask)
-        states, stats = res._step_lanes(states, tuples, mask)
+            states, tuples, mask, settled = res._load_lanes(states, tuples, mask)
+        states, stats = res._step_lanes(states, tuples, mask, settled)
         with tracer.span("executor.finish", cat="executor"):
             stats = _stack_stats(stats, states, res.num_pri)
             return res.merge_state(states), stats

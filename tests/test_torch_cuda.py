@@ -16,6 +16,8 @@ result: |got - want| <= tol * (1 + that sum), cell by cell, with tol 1e-5
 2e-2 (bfloat16), as in tests/test_kernels.py; the bfloat16 kernel also
 rounds the probabilities to bf16 before P @ V, which that tolerance covers.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -247,6 +249,88 @@ def test_executor_on_card_matches_cpu_and_oracle(cuda_device, app):
     np.testing.assert_array_equal(m_cpu.numpy(), oracle(tuples[:, 0]))
     for field in ("max_load", "modeled_cycles", "mode", "rescheduled", "workload"):
         assert torch.equal(getattr(s_gpu, field).cpu(), getattr(s_cpu, field)), field
+
+
+def _leaves(obj, prefix=""):
+    """{path: CPU tensor} over an ExecState / ExecStats."""
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out.update(_leaves(getattr(obj, f.name), f"{prefix}{f.name}."))
+        return out
+    return {prefix[:-1]: obj.cpu()}
+
+
+def _assert_tree_equal(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert got.keys() == want.keys()
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype and torch.equal(got[key], val), key
+
+
+def _sweep_lanes(cuda_device, chunks):
+    """The benchmark's step shape at a few chunks: six lanes at Zipf alpha
+    0-3, M = 16, X = 14, chunks of 4096; a resumable executor with spans."""
+    from repro_torch import obs as obs_lib
+    from repro_torch.core import executor
+    o = obs_lib.Observability()
+    res = executor.make_resumable_executor(histo.make_spec(512, 1 << 20, 16), 16, 14, 4096,
+                                           device=cuda_device, obs=o)
+    tuples = np.stack([zipf_tuples(4096 * chunks, 1 << 20, a, seed=40 + i)
+                       for i, a in enumerate((0.0, 0.5, 1.0, 1.5, 2.0, 3.0))])
+    tuples = torch.as_tensor(tuples).view(6, chunks, 4096, 2).to(cuda_device)
+    return res, executor.stack_states(res.init_state(), 6), tuples, o
+
+
+def _plan_spans(o) -> int:
+    n = sum(e["name"] == "executor.plan" for e in o.tracer.events())
+    o.tracer.clear()
+    return n
+
+
+@pytest.mark.cuda
+def test_settled_steps_add_no_host_sync_and_equal_the_full_step(cuda_device):
+    """A lane-batched run with its chunks on the card and no mask: every
+    step past the first is settled (one ``executor.plan`` span), the run
+    makes no host sync (sync debug mode "error" raises on one), and its
+    state and stats equal those of the full step called directly, bit for
+    bit."""
+    from repro_torch.core import executor
+    res, states, tuples, o = _sweep_lanes(cuda_device, 6)
+    res.scan_lanes(states, tuples[:, :2])          # the kernel's build, the shapes
+    torch.cuda.synchronize()
+    _plan_spans(o)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, stats = res.scan_lanes(states, tuples)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _plan_spans(o) == 1
+    state, full = states.clone(), []
+    for k in range(tuples.shape[1]):
+        state, s = res.step(state, tuples[:, k])
+        full.append(s)
+    assert _plan_spans(o) == tuples.shape[1]
+    _assert_tree_equal(got, state)
+    _assert_tree_equal(stats, executor._stack_stats(full, state, 16))
+
+
+@pytest.mark.cuda
+def test_a_mask_on_the_card_runs_the_full_step(cuda_device):
+    """A mask already on the card gives the loops no host facts: every step
+    is full, with the results of the same mask passed from the host (whose
+    steps past the first settle)."""
+    res, states, tuples, o = _sweep_lanes(cuda_device, 4)
+    mask = np.ones(tuples.shape[:3], bool)
+    mask[5] = False                                # a pad lane
+    mask[0, -1, 1000:] = False                     # a ragged tail
+    on_card, on_card_stats = res.scan_lanes(states, tuples,
+                                            torch.as_tensor(mask).to(cuda_device))
+    assert _plan_spans(o) == tuples.shape[1]
+    host, host_stats = res.scan_lanes(states, tuples, mask)
+    assert _plan_spans(o) == 1
+    _assert_tree_equal(on_card, host)
+    _assert_tree_equal(on_card_stats, host_stats)
 
 
 def _moe_cells(rng, g, t, pe, cap, unique, device):

@@ -6,8 +6,12 @@ A flush is one span tree on the engine's thread::
     stream.flush
       stream.batch (rids)
         stream.stack, executor.load,
-        executor.step x K (executor.route, executor.pe_update, executor.schedule),
+        executor.step x K (executor.route, executor.pe_update,
+                           [executor.plan,] executor.schedule),
         executor.finish, stream.drain, stream.collect
+
+A step has ``executor.plan`` only where a lane can still take a plan:
+here, with one chunk of profiling, the batch's first step.
 
 Only a bundle handed to the engine or an executor factory gets spans; the
 outputs are the same bit for bit with the tracer on, off and under
@@ -33,11 +37,12 @@ LENGTHS = (190, 170, 150)            # 3 chunks each, every tail ragged; one pad
 BATCH_CHILDREN = ["stream.stack", "executor.load", "executor.step", "executor.finish",
                   "stream.drain", "stream.collect"]
 STAGES = ["executor.route", "executor.pe_update", "executor.schedule"]
-SPANS = ["stream.flush", "stream.batch", *BATCH_CHILDREN, *STAGES]
+PLAN = "executor.plan"               # the stage of a step that can still take a plan
+SPANS = ["stream.flush", "stream.batch", *BATCH_CHILDREN, *STAGES, PLAN]
 # an aten op each stage runs on the CPU
 STAGE_OPS = {"executor.load": "aten::stack", "executor.route": "aten::cumsum",
-             "executor.pe_update": "aten::index_add_", "executor.schedule": "aten::argmax",
-             "executor.finish": "aten::stack"}
+             "executor.pe_update": "aten::index_add_", "executor.plan": "aten::argmax",
+             "executor.schedule": "aten::amax", "executor.finish": "aten::stack"}
 
 
 def _spec():
@@ -98,12 +103,20 @@ def test_one_step_span_a_batched_chunk_with_one_span_a_stage():
         route, update, sched = (next(s for s in _events(o, n) if _inside(s, step))
                                 for n in STAGES)
         assert route["ts"] <= update["ts"] <= sched["ts"]
+    # the plan stage: the first step only, between the update and the schedule
+    (plan,) = _events(o, PLAN)
+    first = min(steps, key=lambda e: e["ts"])
+    assert _inside(plan, first)
+    update, sched = (next(s for s in _events(o, n) if _inside(s, first))
+                     for n in STAGES[1:])
+    assert update["ts"] <= plan["ts"] <= sched["ts"]
 
 
 @pytest.mark.parametrize("static_plan", [False, True])
 def test_run_chunks_and_scan_lanes_span_their_steps(static_plan):
     """The stage spans live in the chunk step: every executor shape gets
-    them; a static-plan step's schedule span holds only its stats."""
+    them; a static-plan step's schedule span holds only its stats, and it
+    has no plan stage; an online call's first step has one."""
     o = obs_lib.Observability()
     res = executor.make_resumable_executor(_spec(), M, X, CHUNK, device="cpu",
                                            static_plan=static_plan, obs=o)
@@ -113,7 +126,8 @@ def test_run_chunks_and_scan_lanes_span_their_steps(static_plan):
     names = [e["name"] for e in _events(o)]
     assert names.count("executor.step") == 8
     assert all(names.count(s) == 8 for s in STAGES)
-    assert set(names) == {"executor.step", *STAGES}
+    assert names.count(PLAN) == (0 if static_plan else 2)
+    assert set(names) == {"executor.step", *STAGES} | (set() if static_plan else {PLAN})
 
 
 def test_no_bundle_no_spans():
